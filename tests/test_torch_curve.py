@@ -14,6 +14,11 @@ from zecale_tpu.ff import fp8, fp8q
 from zecale_tpu.ff import params as P
 from zecale_tpu_torch.ec import curve_torch as ct
 
+# One intra-op thread: the suite runs in several worker processes at
+# once, and torch's OpenMP threads spinning in each of them slow every
+# worker many times over (a 13 s test took 695 s with four workers).
+torch.set_num_threads(1)
+
 
 def _multiples(crv, gen, k):
     pts, pt = [], gen
@@ -109,6 +114,15 @@ def test_rcb_b3_12_bw6_g2_matches_host():
 
 
 def test_b3_of_refuses_extension_field_g2():
-    with pytest.raises(NotImplementedError):
-        ct.b3_of("bls12-377", True)
+    """BLS12-377 G2 (Fq2) now has its twist constant b3 = (0, -3/5); the
+    extension-field G2 groups of the MNT curves (a != 0) are still
+    refused, as is their G1."""
+    q = P.BLS12_377_Q
+    b3 = ct.b3_of("bls12-377", True)
+    assert b3 == (0, (-3 * pow(5, q - 2, q)) % q)
+    assert b3[1] * -5 % q == 3  # b3 * u = c1 u^2 = 3b with b = 1: b3 = 3/u
     assert ct.b3_of("bls12-377", False) == 3
+    for curve in ("mnt4-298", "mnt6-298"):
+        for g2 in (False, True):
+            with pytest.raises(ValueError):
+                ct.b3_of(curve, g2)

@@ -3,6 +3,8 @@ reference's jitted pipeline poly/fft_tpu.py:h_pipeline_jit and the host
 radix-2 domain, over BW6-761 Fr.  Both sides use R = 2^384, so Montgomery
 limbs compare bit for bit.  Tolerance: exact."""
 
+import torch
+
 import numpy as np
 import pytest
 
@@ -11,6 +13,11 @@ from zecale_tpu.ff import params as P
 from zecale_tpu.poly import domain_host, fft_tpu
 from zecale_tpu_torch.ff.fp_torch import field
 from zecale_tpu_torch.poly import fft_torch
+
+# One intra-op thread: the suite runs in several worker processes at
+# once, and torch's OpenMP threads spinning in each of them slow every
+# worker many times over (a 13 s test took 695 s with four workers).
+torch.set_num_threads(1)
 
 R_FR = P.BW6_761_R
 

@@ -13,6 +13,11 @@ from zecale_tpu.ff import params as P
 from zecale_tpu_torch.ff import fp_torch as ft
 from zecale_tpu_torch.utils import build
 
+# One intra-op thread: the suite runs in several worker processes at
+# once, and torch's OpenMP threads spinning in each of them slow every
+# worker many times over (a 13 s test took 695 s with four workers).
+torch.set_num_threads(1)
+
 MODULI = {
     "bls12-377-q": P.BLS12_377_Q,
     "bw6-761-q": P.BW6_761_Q,

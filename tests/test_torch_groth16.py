@@ -1,7 +1,8 @@
 """The port's device prover (zecale_tpu_torch/snark/groth16_torch.py) on
-the CPU against the reference's host Groth16 prover and verifier, and the
-carry-over of the reference's packed proving key.  Tolerance: exact (the
-same random.Random state must give the same A, B, C)."""
+the CPU against the reference's host Groth16 prover and verifier, on both
+curves (BW6-761, and BLS12-377 with G2 over Fq2) and with both MSM engines,
+and the carry-over of the reference's packed proving key.  Tolerance: exact
+(the same random.Random state must give the same A, B, C)."""
 
 import random
 
@@ -19,6 +20,11 @@ from zecale_tpu_torch.snark.groth16_torch import (
     pack_pk,
 )
 from zecale_tpu_torch.utils.device import resolve
+
+# One intra-op thread: the suite runs in several worker processes at
+# once, and torch's OpenMP threads spinning in each of them slow every
+# worker many times over (a 13 s test took 695 s with four workers).
+torch.set_num_threads(1)
 
 CURVE = "bw6-761"
 
@@ -63,6 +69,64 @@ def test_from_reference_pk8_equals_pack_pk(dummy_bw6):
                            getattr(want, name)["inf"])
     for k in points:
         assert getattr(got, k) == getattr(want, k)
+
+
+def test_groth16_torch_bls12_377_cpu_equals_host_prover_and_verifies():
+    """The nested curve: G2 over Fq2 through the msm4 route."""
+    curve = "bls12-377"
+    r1cs, kp = ref_da.dummy_app_setup(curve, random.Random(6))
+    asg = ref_da.dummy_app_assignment(curve, 7)
+    host = RefGroth16(curve)
+    want = host.prove(r1cs, kp.pk, asg, random.Random(78))
+    got = Groth16Torch(curve, device="cpu", engine="msm4").prove(
+        r1cs, kp.pk, asg, random.Random(78))
+    assert (got.a, got.b, got.c) == (want.a, want.b, want.c)
+    assert host.verify([7], got, kp.vk)
+
+
+def test_msm8_engine_equals_msm4_engine(dummy_bw6, monkeypatch):
+    r1cs, kp = dummy_bw6
+    asg = ref_da.dummy_app_assignment(CURVE, 9)
+    proofs = {}
+    for engine in ("msm4", "msm8"):
+        timings = {}
+        prover = Groth16Torch(CURVE, device="cpu", engine=engine)
+        proofs[engine] = prover.prove(r1cs, kp.pk, asg, random.Random(77),
+                                      timings=timings)
+        assert set(timings) == {"witness", "fft", "digitize", "msm",
+                                "assembly"}
+    p4, p8 = proofs["msm4"], proofs["msm8"]
+    assert (p8.a, p8.b, p8.c) == (p4.a, p4.b, p4.c)
+    assert RefGroth16(CURVE).verify([9], p8, kp.vk)
+    # engine=None reads ZECALE_USE_MSM8 as the reference prover does
+    monkeypatch.delenv("ZECALE_USE_MSM8", raising=False)
+    assert Groth16Torch(CURVE, device="cpu").engine == "msm4"
+    monkeypatch.setenv("ZECALE_USE_MSM8", "1")
+    assert Groth16Torch(CURVE, device="cpu").engine == "msm8"
+    with pytest.raises(ValueError):
+        Groth16Torch(CURVE, device="cpu", engine="msm5")
+
+
+def test_from_reference_pk8_equals_pack_pk_bls12_377():
+    """The Fq2 G2 query's (n, 2, 48) byte planes regroup into the port's
+    (n, 2, 2, 12) limbs."""
+    curve = "bls12-377"
+    r1cs, kp = ref_da.dummy_app_setup(curve, random.Random(6))
+    num_pub = r1cs.num_primary + 1
+    ref = pack_pk8(curve, kp.pk, num_pub)
+    arrays = {
+        name: {k: np.asarray(v) for k, v in getattr(ref, name).items()}
+        for name in QUERIES
+    }
+    points = {k: getattr(ref, k) for k in
+              ("alpha_g1", "beta_g1", "beta_g2", "delta_g1", "delta_g2")}
+    got = from_reference_pk8(arrays, curve, num_pub, points, device="cpu")
+    want = pack_pk(curve, kp.pk, num_pub, device="cpu")
+    assert want.b_g2_query["xy"].shape == (want.n_g2, 2, 2, 12)
+    for name in QUERIES:
+        assert torch.equal(getattr(got, name)["xy"], getattr(want, name)["xy"])
+        assert torch.equal(getattr(got, name)["inf"],
+                           getattr(want, name)["inf"])
 
 
 def test_entry_points_default_to_cuda():

@@ -15,6 +15,11 @@ from zecale_tpu_torch.ec import msm
 from zecale_tpu_torch.ff.fp_torch import field
 from zecale_tpu_torch.utils import build
 
+# One intra-op thread: the suite runs in several worker processes at
+# once, and torch's OpenMP threads spinning in each of them slow every
+# worker many times over (a 13 s test took 695 s with four workers).
+torch.set_num_threads(1)
+
 
 def _curve(curve, g2):
     return hc.g2_curve(curve) if g2 else hc.g1_curve(curve)
@@ -96,7 +101,7 @@ def test_signed_digits_recompose():
 
 
 def _segments_case(curve, g2, seed):
-    F = ct.base_field(curve)
+    F = ct.coord_field(curve, g2)
     D = 24
     pts = _points(curve, g2, D)
     xy, _ = ct.pack_affine(F, pts, "cpu")
@@ -112,19 +117,21 @@ def _segments_case(curve, g2, seed):
 
 
 def _cpu_kernel(F, pts, ent, seg, b3, affine):
-    out = torch.empty((seg.numel() - 1, 3, F.n), dtype=torch.int32)
-    p, one = msm._host_params(F)
+    out = torch.empty((seg.numel() - 1, 3, *F.shape), dtype=torch.int32)
+    p, one, pinv, b3_buf = ct.kernel_consts(F, b3)
+    form = 2 if len(F.shape) == 2 else F.n
     rc = build.host_check_lib().zt_cpu_bucket_reduce(
-        F.n, int(affine), pts.data_ptr(), ent.data_ptr(), seg.data_ptr(),
+        form, int(affine), pts.data_ptr(), ent.data_ptr(), seg.data_ptr(),
         seg.numel() - 1, out.data_ptr(), p.ctypes.data, one.ctypes.data,
-        F.pinv32, b3,
+        pinv, b3_buf.ctypes.data,
     )
     assert rc == 0
     return out
 
 
 @pytest.mark.parametrize(
-    "curve,g2", [("bls12-377", False), ("bw6-761", False), ("bw6-761", True)]
+    "curve,g2", [("bls12-377", False), ("bw6-761", False), ("bw6-761", True),
+                 ("bls12-377", True)]
 )
 def test_kernel_device_code_cpu_build_matches_plain(curve, g2):
     """Empty segments, single points, P+P, P+(-P), repeats and random
@@ -161,3 +168,60 @@ def test_bucket_reduce_kernel_matches_plain_on_gpu():
         assert msm.bucket_reduce.launches == before + 1
         ref = msm.bucket_reduce_ref(xy, ent, seg, F, b3, True)
         assert torch.equal(got, ref)
+
+
+def _need_gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+
+
+@pytest.mark.cuda
+def test_bucket_reduce_fq2_kernel_matches_plain_on_gpu():
+    """K1 in its Fq2 form (BLS12-377 G2), affine and projective inputs."""
+    _need_gpu()
+    curve, g2 = "bls12-377", True
+    b3 = ct.b3_of(curve, g2)
+    F, _, xy, ent, seg, _ = _segments_case(curve, g2, 29)
+    xy, ent, seg = xy.cuda(), ent.cuda(), seg.cuda()
+    before = msm.bucket_reduce.launches_by_form["fq2"]
+    got = msm.bucket_reduce(xy, ent, seg, F, b3, True)
+    assert msm.bucket_reduce.launches_by_form["fq2"] == before + 1
+    ref = msm.bucket_reduce_ref(xy, ent, seg, F, b3, True)
+    assert torch.equal(got, ref)
+    e2 = torch.arange(ref.shape[0], dtype=torch.int32, device="cuda") * 2
+    s2 = torch.tensor([0, 1, 5, 5, ref.shape[0]], dtype=torch.int32,
+                      device="cuda")
+    assert torch.equal(msm.bucket_reduce(ref, e2, s2, F, b3, False),
+                       msm.bucket_reduce_ref(ref, e2, s2, F, b3, False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "curve,g2", [("bls12-377", False), ("bw6-761", False), ("bw6-761", True),
+                 ("bls12-377", True)]
+)
+def test_proj_kernels_match_plain_on_gpu(curve, g2):
+    """K2 and K3 against their plain versions, with identities, P+P,
+    P+(-P) and Z != 1 among the inputs."""
+    from zecale_tpu_torch.ec import proj_curve as pc
+
+    _need_gpu()
+    crv = pc.ProjCurve(curve, g2)
+    F, b3 = crv.F, crv.b3
+    pts = _points(curve, g2, 8)
+    neg = [_curve(curve, g2).neg(p) for p in pts]
+    xy, inf = ct.pack_affine(F, pts + [None] + pts, "cuda")
+    a = crv.from_affine(xy, inf)
+    xy2, inf2 = ct.pack_affine(F, pts[1:] + [pts[0], None] + neg, "cuda")
+    b = ct.proj_dbl(F, crv.from_affine(xy2, inf2), b3)  # Z != 1
+    a = torch.cat([a, ct.proj_dbl(F, a, b3)])
+    b = torch.cat([b, a[: b.shape[0]]])
+    before = pc.proj_add.launches
+    got = pc.proj_add(F, a, b, b3)
+    assert pc.proj_add.launches == before + 1
+    assert torch.equal(got, ct.proj_add(F, a, b, b3))
+    for k in (1, 6):
+        ref = a
+        for _ in range(k):
+            ref = ct.proj_dbl(F, ref, b3)
+        assert torch.equal(pc.proj_dbl_chain(F, a, k, b3), ref)

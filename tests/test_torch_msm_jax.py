@@ -5,6 +5,7 @@ JAX side compiles its whole pipeline on the CPU (about 90 s), so this
 comparison has a file of its own.  Tolerance: exact."""
 
 import numpy as np
+import torch
 
 from zecale_tpu.ec import host_curve as hc
 from zecale_tpu.ec import msm4
@@ -12,6 +13,11 @@ from zecale_tpu.ff import params as P
 from zecale_tpu_torch.ec import curve_torch as ct
 from zecale_tpu_torch.ec import msm
 from zecale_tpu_torch.ff.fp_torch import field
+
+# One intra-op thread: the suite runs in several worker processes at
+# once, and torch's OpenMP threads spinning in each of them slow every
+# worker many times over (a 13 s test took 695 s with four workers).
+torch.set_num_threads(1)
 
 
 def test_msm_matches_jax_msm4_pallas_interpret():

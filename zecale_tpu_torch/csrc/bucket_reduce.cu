@@ -19,66 +19,53 @@
 // L1-backed local memory; __launch_bounds__(128) caps a block at 128
 // threads so that 128 x 255 registers fit the SM's 65,536.
 //
-// Built once per limb count and input form (-DZT_LIMBS=12|24,
-// -DZT_AFFINE=1|0: four nvcc processes side by side, since one 24-limb
-// variant alone takes most of the build) into zt_bucket_reduce_<N>_<A>: a
-// C interface loaded with ctypes by utils/build.py, returning the CUDA
+// The Fq2 form (BLS12-377 G2, the G2 query of a nested BLS12-377 proof)
+// runs the same body over field2.cuh; its b3 is the twist constant, passed
+// as an argument like the small b3 of the Fq forms.
+//
+// Built once per field form and input form (-DZT_LIMBS=12|24 or
+// -DZT_FQ2=1, with -DZT_AFFINE=1|0: six nvcc processes side by side, since
+// one 24-limb variant alone takes most of the build) into zt_bucket_reduce:
+// a C interface loaded with ctypes by utils/build.py, returning the CUDA
 // error code of the launch (0 on success).
 #include <cuda_runtime.h>
-#include <string.h>
 
 #include "curve.cuh"
+
+#if !defined(ZT_AFFINE) || !(defined(ZT_LIMBS) || defined(ZT_FQ2))
+#error "build with -DZT_LIMBS=12|24 or -DZT_FQ2=1, and -DZT_AFFINE=1|0"
+#endif
 
 namespace {
 
 constexpr int kThreads = 128;
 
-template <int N, bool AFFINE>
+template <class Fld, bool AFFINE>
 __global__ void __launch_bounds__(kThreads)
     bucket_reduce_kernel(const uint32_t* __restrict__ pts,
                          const int32_t* __restrict__ ent,
                          const int32_t* __restrict__ seg, int nseg,
-                         uint32_t* __restrict__ out, FieldParams<N> F,
-                         int b3) {
+                         uint32_t* __restrict__ out,
+                         typename Fld::Params F, typename Fld::B3 b3) {
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= nseg) return;
-  reduce_segment<N, AFFINE>(out + (size_t)s * 3 * N, pts, ent, seg[s],
-                            seg[s + 1], b3, F);
-}
-
-#if !defined(ZT_LIMBS) || !defined(ZT_AFFINE)
-#error "build with -DZT_LIMBS=12|24 and -DZT_AFFINE=1|0"
-#endif
-#define ZT_NAME2(n, a) zt_bucket_reduce_##n##_##a
-#define ZT_NAME(n, a) ZT_NAME2(n, a)
-
-template <int N, bool AFFINE>
-int launch(const void* pts, const void* ent, const void* seg, int nseg,
-           void* out, const void* p, const void* one, unsigned pinv, int b3,
-           cudaStream_t stream) {
-  FieldParams<N> F;
-  memcpy(F.p, p, sizeof(F.p));
-  memcpy(F.one, one, sizeof(F.one));
-  F.pinv = pinv;
-  const int blocks = (nseg + kThreads - 1) / kThreads;
-  const auto* P = static_cast<const uint32_t*>(pts);
-  const auto* E = static_cast<const int32_t*>(ent);
-  const auto* S = static_cast<const int32_t*>(seg);
-  auto* O = static_cast<uint32_t*>(out);
-  bucket_reduce_kernel<N, AFFINE>
-      <<<blocks, kThreads, 0, stream>>>(P, E, S, nseg, O, F, b3);
-  return (int)cudaGetLastError();
+  reduce_segment<Fld, AFFINE>(out + (size_t)s * 3 * Fld::W, pts, ent,
+                              seg[s], seg[s + 1], b3, F);
 }
 
 }  // namespace
 
-extern "C" int ZT_NAME(ZT_LIMBS, ZT_AFFINE)(const void* pts,
-                                          const void* ent, const void* seg,
-                                          int nseg, void* out, const void* p,
-                                          const void* one, unsigned pinv,
-                                          int b3, void* stream) {
+extern "C" int zt_bucket_reduce(const void* pts, const void* ent,
+                                const void* seg, int nseg, void* out,
+                                const void* p, const void* one,
+                                unsigned pinv, const void* b3,
+                                void* stream) {
   if (nseg <= 0) return 0;
-  return launch<ZT_LIMBS, ZT_AFFINE != 0>(pts, ent, seg, nseg, out, p, one,
-                                         pinv, b3,
-                                         static_cast<cudaStream_t>(stream));
+  const int blocks = (nseg + kThreads - 1) / kThreads;
+  bucket_reduce_kernel<ZtField, ZT_AFFINE != 0>
+      <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const uint32_t*>(pts), static_cast<const int32_t*>(ent),
+          static_cast<const int32_t*>(seg), nseg, static_cast<uint32_t*>(out),
+          field_params<ZtField>(p, one, pinv), field_b3<ZtField>(b3));
+  return (int)cudaGetLastError();
 }

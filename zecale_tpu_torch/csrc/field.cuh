@@ -1,10 +1,13 @@
 // Montgomery arithmetic over N little-endian 32-bit limbs (R = 2^(32N)),
 // as __host__ __device__ inline functions: nvcc builds them into the
 // kernels, g++ into a small CPU library the tests hold against the plain
-// PyTorch version (ff/fp_torch.py).  Every function takes and returns
+// PyTorch version (ff/fp_torch.py).  Fq<N> at the end wraps them as the
+// field type that the group law (curve.cuh) is written over; field2.cuh
+// has the other one, Fq2.  Every function takes and returns
 // canonical values in [0, p); p < 2^(32N - 1) for every field used here
 // (BLS12-377 Fq and BW6-761 Fr at N = 12, BW6-761 Fq at N = 24).
 #pragma once
+#include <stddef.h>
 #include <stdint.h>
 
 #ifdef __CUDACC__
@@ -131,8 +134,9 @@ ZT_HD void fp_mul(uint32_t* r, const uint32_t* a, const uint32_t* b,
   fp_copy<N>(r, t);
 }
 
-// r = k*a for a small integer k (b3 = 3, -3 or 12): double-and-add, then a
-// field negation for k < 0 -- never a multiply by a negative limb.
+// r = k*a for a small integer k (b3 = 3, -3 or 12, the Fq2 non-residue
+// -5): double-and-add, then a field negation for k < 0 -- never a multiply
+// by a negative limb.
 template <int N>
 ZT_HD void fp_mul_small(uint32_t* r, const uint32_t* a, int k,
                         const FieldParams<N>& F) {
@@ -151,3 +155,40 @@ ZT_HD void fp_mul_small(uint32_t* r, const uint32_t* a, int k,
   else
     fp_copy<N>(r, acc);
 }
+
+// The prime field as a type for the group law: an element is W = N words,
+// and b3 = 3b of the curve equation is a small signed integer (3 for
+// BLS12-377 G1, -3 for BW6-761 G1, 12 for BW6-761 G2).
+template <int N>
+struct Fq {
+  static constexpr int NB = N;  // limbs of the base prime field
+  static constexpr int W = N;   // words per element
+  using Params = FieldParams<N>;
+  using B3 = int;
+
+  ZT_HD static void copy(uint32_t* r, const uint32_t* a) { fp_copy<N>(r, a); }
+  ZT_HD static void zero(uint32_t* r) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) r[i] = 0;
+  }
+  ZT_HD static void one(uint32_t* r, const Params& F) { fp_copy<N>(r, F.one); }
+  ZT_HD static void add(uint32_t* r, const uint32_t* a, const uint32_t* b,
+                        const Params& F) {
+    fp_add<N>(r, a, b, F);
+  }
+  ZT_HD static void sub(uint32_t* r, const uint32_t* a, const uint32_t* b,
+                        const Params& F) {
+    fp_sub<N>(r, a, b, F);
+  }
+  ZT_HD static void neg(uint32_t* r, const uint32_t* a, const Params& F) {
+    fp_neg<N>(r, a, F);
+  }
+  ZT_HD static void mul(uint32_t* r, const uint32_t* a, const uint32_t* b,
+                        const Params& F) {
+    fp_mul<N>(r, a, b, F);
+  }
+  ZT_HD static void mul_b3(uint32_t* r, const uint32_t* a, B3 b3,
+                           const Params& F) {
+    fp_mul_small<N>(r, a, b3, F);
+  }
+};

@@ -1,68 +1,106 @@
-// CPU build of the device math in field.cuh and curve.cuh (g++), so the
-// tests can hold the exact functions the CUDA kernel runs against the plain
-// PyTorch versions on a machine without a GPU.
-#include <string.h>
+// CPU build of the device math in field.cuh, field2.cuh and curve.cuh
+// (g++), so the tests can hold the exact functions the CUDA kernels run
+// against the plain PyTorch versions on a machine without a GPU.
+//
+// ``form`` picks the field type as the kernel builds do: 12 or 24 is
+// Fq<12> / Fq<24>, 2 is Fq2 over 12 limbs.  ``b3`` points to the kernel's
+// b3 bytes (an int32 over Fq, 2 x 12 Montgomery limbs over Fq2).
+#include <type_traits>
 
 #include "curve.cuh"
 
 namespace {
 
-template <int N>
-FieldParams<N> params(const uint32_t* p, const uint32_t* one, uint32_t pinv) {
-  FieldParams<N> F;
-  memcpy(F.p, p, sizeof(F.p));
-  memcpy(F.one, one, sizeof(F.one));
-  F.pinv = pinv;
-  return F;
-}
-
-template <int N>
+template <class Fld>
 void mul_batch(uint32_t* r, const uint32_t* a, const uint32_t* b, long n,
-               const FieldParams<N>& F) {
-  for (long i = 0; i < n; ++i) fp_mul<N>(r + i * N, a + i * N, b + i * N, F);
+               const typename Fld::Params& F) {
+  for (long i = 0; i < n; ++i)
+    Fld::mul(r + i * Fld::W, a + i * Fld::W, b + i * Fld::W, F);
 }
 
-template <int N>
+template <class Fld>
 void reduce_batch(int affine, const uint32_t* pts, const int32_t* ent,
-                  const int32_t* seg, int nseg, uint32_t* out, int b3,
-                  const FieldParams<N>& F) {
+                  const int32_t* seg, int nseg, uint32_t* out,
+                  const typename Fld::B3& b3, const typename Fld::Params& F) {
   for (int s = 0; s < nseg; ++s) {
+    uint32_t* o = out + (size_t)s * 3 * Fld::W;
     if (affine)
-      reduce_segment<N, true>(out + (size_t)s * 3 * N, pts, ent, seg[s],
-                              seg[s + 1], b3, F);
+      reduce_segment<Fld, true>(o, pts, ent, seg[s], seg[s + 1], b3, F);
     else
-      reduce_segment<N, false>(out + (size_t)s * 3 * N, pts, ent, seg[s],
-                               seg[s + 1], b3, F);
+      reduce_segment<Fld, false>(o, pts, ent, seg[s], seg[s + 1], b3, F);
   }
+}
+
+// k == 0: out = p + q (K2); k > 0: out = 2^k p (K3)
+template <class Fld>
+void proj_batch(const uint32_t* p, const uint32_t* q, uint32_t* out, long n,
+                int k, const typename Fld::B3& b3,
+                const typename Fld::Params& F) {
+  for (long i = 0; i < n; ++i) {
+    const size_t row = (size_t)i * 3 * Fld::W;
+    Proj<Fld> a, b;
+    proj_load<Fld>(a, p + row);
+    if (k == 0) {
+      proj_load<Fld>(b, q + row);
+      proj_add<Fld>(a, a, b, b3, F);
+    } else {
+      for (int j = 0; j < k; ++j) proj_dbl<Fld>(a, a, b3, F);
+    }
+    proj_store<Fld>(out + row, a);
+  }
+}
+
+template <class Fld>
+struct Args {
+  typename Fld::Params F;
+  typename Fld::B3 b3;
+  Args(const void* p, const void* one, unsigned pinv, const void* b3v)
+      : F(field_params<Fld>(p, one, pinv)), b3() {
+    if (b3v) b3 = field_b3<Fld>(b3v);
+  }
+};
+
+// Calls fn.template operator()<Fld>() for the field type of ``form``.
+template <class Fn>
+int dispatch(int form, Fn&& fn) {
+  if (form == 12) return fn(static_cast<Fq<12>*>(nullptr)), 0;
+  if (form == 24) return fn(static_cast<Fq<24>*>(nullptr)), 0;
+  if (form == 2) return fn(static_cast<Fq2*>(nullptr)), 0;
+  return 1;
 }
 
 }  // namespace
 
-extern "C" int zt_cpu_fp_mul(int nlimbs, uint32_t* r, const uint32_t* a,
+extern "C" int zt_cpu_fp_mul(int form, uint32_t* r, const uint32_t* a,
                              const uint32_t* b, long n, const uint32_t* p,
                              const uint32_t* one, unsigned pinv) {
-  if (nlimbs == 12)
-    mul_batch<12>(r, a, b, n, params<12>(p, one, pinv));
-  else if (nlimbs == 24)
-    mul_batch<24>(r, a, b, n, params<24>(p, one, pinv));
-  else
-    return 1;
-  return 0;
+  return dispatch(form, [&](auto* tag) {
+    using Fld = std::remove_pointer_t<decltype(tag)>;
+    Args<Fld> A(p, one, pinv, nullptr);
+    mul_batch<Fld>(r, a, b, n, A.F);
+  });
 }
 
-extern "C" int zt_cpu_bucket_reduce(int nlimbs, int affine,
+extern "C" int zt_cpu_bucket_reduce(int form, int affine,
                                     const uint32_t* pts, const int32_t* ent,
                                     const int32_t* seg, int nseg,
                                     uint32_t* out, const uint32_t* p,
                                     const uint32_t* one, unsigned pinv,
-                                    int b3) {
-  if (nlimbs == 12)
-    reduce_batch<12>(affine, pts, ent, seg, nseg, out, b3,
-                     params<12>(p, one, pinv));
-  else if (nlimbs == 24)
-    reduce_batch<24>(affine, pts, ent, seg, nseg, out, b3,
-                     params<24>(p, one, pinv));
-  else
-    return 1;
-  return 0;
+                                    const void* b3) {
+  return dispatch(form, [&](auto* tag) {
+    using Fld = std::remove_pointer_t<decltype(tag)>;
+    Args<Fld> A(p, one, pinv, b3);
+    reduce_batch<Fld>(affine, pts, ent, seg, nseg, out, A.b3, A.F);
+  });
+}
+
+extern "C" int zt_cpu_proj(int form, const uint32_t* pp, const uint32_t* q,
+                           uint32_t* out, long n, int k, const uint32_t* p,
+                           const uint32_t* one, unsigned pinv,
+                           const void* b3) {
+  return dispatch(form, [&](auto* tag) {
+    using Fld = std::remove_pointer_t<decltype(tag)>;
+    Args<Fld> A(p, one, pinv, b3);
+    proj_batch<Fld>(pp, q, out, n, k, A.b3, A.F);
+  });
 }

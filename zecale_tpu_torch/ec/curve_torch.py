@@ -3,34 +3,44 @@
 Ports ``ec/curve_jax.py:ProjCurve`` (49) and the lazy-form bodies
 ``ff/fp8q.py:proj_add_q`` (470) and ``proj_dbl_q`` (538): the complete
 Renes-Costello-Batina formulas (RCB16 algorithms 7, 8 and 9) over canonical
-Montgomery field tensors (``ff/fp_torch.py``).  These are the plain versions
-of the functions in ``csrc/curve.cuh``; they compute the same canonical
-coordinates, so kernel and plain outputs compare bit for bit.
+Montgomery field tensors.  These are the plain versions of the functions in
+``csrc/curve.cuh``; they compute the same canonical coordinates, so kernel
+and plain outputs compare bit for bit.
 
-Points are int32 tensors of shape (..., 3, n) for projective (X:Y:Z) with
-identity (0:1:0), and (..., 2, n) for affine (x, y).  b3 = 3b is a small
-signed integer: 3 (BLS12-377 G1), -3 (BW6-761 G1), 12 (BW6-761 G2); a
-negative b3 is a field negation (``Field.mul_small``), never a negative
-limb multiply -- the per-limb-negative trap ``fp8q.py:496-501`` records.
+The coordinate field F is ``ff/fp_torch.Field`` (elements (..., n)) or
+``ff/fp2_torch.Fp2`` (elements (..., 2, n), BLS12-377 G2); ``F.shape`` is
+the trailing shape of one element.  Points are int32 tensors of shape
+(..., 3, *F.shape) for projective (X:Y:Z) with identity (0:1:0), and
+(..., 2, *F.shape) for affine (x, y).  b3 = 3b is a small signed integer
+over Fq -- 3 (BLS12-377 G1), -3 (BW6-761 G1), 12 (BW6-761 G2) -- applied as
+``F.mul_small``, never a negative limb multiply (the trap
+``fp8q.py:496-501`` records); over Fq2 it is the twist constant (c0, c1) =
+(0, -3/5), a full Fq2 product.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
+from ..ff import host_field as hf
 from ..ff import params as P
+from ..ff.fp2_torch import bls12_377_fq2
 from ..ff.fp_torch import Field, field
 
 
-def b3_of(curve_name: str, g2: bool) -> int:
-    """3b for G1, or for G2 on a curve whose twist lives in Fq itself."""
+def b3_of(curve_name: str, g2: bool):
+    """3b of the group's curve: a small int over Fq, the (c0, c1) tuple of
+    the twist constant for BLS12-377 G2 (y^2 = x^3 + 1/u, u^2 = -5)."""
     cp = P.CURVES[curve_name]
     if cp.a != 0:
         raise ValueError(f"{curve_name}: the RCB a=0 law needs a = 0")
     if g2 and cp.g2_degree != 1:
-        raise NotImplementedError(
-            f"{curve_name} G2 lies in an extension field (not ported yet)"
-        )
+        if curve_name != "bls12-377":
+            raise NotImplementedError(f"{curve_name} G2 is not ported")
+        return (0, (-3 * pow(5, -1, cp.q)) % cp.q)
     b = 4 if g2 else cp.b  # BW6-761 M-twist: y^2 = x^3 + 4
     return {1: 3, cp.q - 1: -3, 4: 12}[b]
 
@@ -39,33 +49,75 @@ def base_field(curve_name: str) -> Field:
     return field(P.CURVES[curve_name].q)
 
 
-def identity(F: Field, shape, device) -> torch.Tensor:
-    out = torch.zeros(*shape, 3, F.n, dtype=torch.int32, device=device)
-    out[..., 1, :] = F.consts(device)["one"]
+def coord_field(curve_name: str, g2: bool):
+    """The field of the group's coordinates: Fq, or Fq2 for BLS12-377 G2."""
+    if g2 and P.CURVES[curve_name].g2_degree == 2:
+        b3_of(curve_name, g2)  # refuses what is not ported
+        return bls12_377_fq2()
+    return base_field(curve_name)
+
+
+def form_of(F) -> str:
+    """The kernels' build form of a coordinate field (``utils/build.py``
+    FORMS): "fq12", "fq24" or "fq2"."""
+    return "fq2" if len(F.shape) == 2 else f"fq{F.n}"
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_consts(F, b3) -> tuple:
+    """The constants a kernel launcher takes, as host numpy arrays: the
+    base prime and R mod p (uint32 limbs), -p^-1 mod 2^32, and the b3
+    bytes (an int32, or the twist constant's 2 x n Montgomery limbs)."""
+    base = getattr(F, "base", F)
+    p = np.frombuffer(base.p.to_bytes(4 * base.n, "little"), dtype="<u4")
+    one = np.frombuffer(base.r_mod_p.to_bytes(4 * base.n, "little"),
+                        dtype="<u4")
+    if isinstance(b3, int):
+        b3_buf = np.array([b3], dtype=np.int32)
+    else:
+        b3_buf = F.pack_mont([b3]).numpy()
+    return p.copy(), one.copy(), base.pinv32, np.ascontiguousarray(b3_buf)
+
+
+@functools.lru_cache(maxsize=None)
+def _b3_tensor(F, b3, device: str) -> torch.Tensor:
+    return F.pack_mont([b3], device)[0]
+
+
+def _mul_b3(F, t: torch.Tensor, b3) -> torch.Tensor:
+    if isinstance(b3, int):
+        return F.mul_small(t, b3)
+    return F.mul(t, _b3_tensor(F, b3, str(t.device)))
+
+
+def identity(F, shape, device) -> torch.Tensor:
+    out = torch.zeros(*shape, 3, *F.shape, dtype=torch.int32, device=device)
+    out.select(-1 - len(F.shape), 1).copy_(
+        F.consts(device)["one"].expand(*shape, *F.shape))
     return out
 
 
-def _xyz(pt):
-    return pt[..., 0, :], pt[..., 1, :], pt[..., 2, :]
+def _xyz(F, pt):
+    return pt.unbind(-1 - len(F.shape))
 
 
 def _finish(F, t0, t1, t2, t3, t4, y3, b3):
     """Shared tail of algorithms 7 and 8, from the three cross terms."""
     t0 = F.add(F.add(t0, t0), t0)
-    t2 = F.mul_small(t2, b3)
+    t2 = _mul_b3(F, t2, b3)
     z3 = F.add(t1, t2)
     t1 = F.sub(t1, t2)
-    y3 = F.mul_small(y3, b3)
+    y3 = _mul_b3(F, y3, b3)
     x3 = F.sub(F.mul(t3, t1), F.mul(t4, y3))
     y3 = F.add(F.mul(t1, z3), F.mul(y3, t0))
     z3 = F.add(F.mul(z3, t4), F.mul(t0, t3))
-    return torch.stack((x3, y3, z3), dim=-2)
+    return torch.stack((x3, y3, z3), dim=-1 - len(F.shape))
 
 
-def proj_add(F: Field, p: torch.Tensor, q: torch.Tensor, b3: int):
+def proj_add(F, p: torch.Tensor, q: torch.Tensor, b3):
     """p + q, RCB16 algorithm 7 (complete)."""
-    x1, y1, z1 = _xyz(p)
-    x2, y2, z2 = _xyz(q)
+    x1, y1, z1 = _xyz(F, p)
+    x2, y2, z2 = _xyz(F, q)
     t0 = F.mul(x1, x2)
     t1 = F.mul(y1, y2)
     t2 = F.mul(z1, z2)
@@ -75,11 +127,11 @@ def proj_add(F: Field, p: torch.Tensor, q: torch.Tensor, b3: int):
     return _finish(F, t0, t1, t2, t3, t4, y3, b3)
 
 
-def proj_add_mixed(F: Field, p: torch.Tensor, q_aff: torch.Tensor, b3: int):
+def proj_add_mixed(F, p: torch.Tensor, q_aff: torch.Tensor, b3):
     """p + (x, y, 1), RCB16 algorithm 8: equal to ``proj_add`` with Z2 = 1.
     q must not be the identity."""
-    x1, y1, z1 = _xyz(p)
-    x2, y2 = q_aff[..., 0, :], q_aff[..., 1, :]
+    x1, y1, z1 = _xyz(F, p)
+    x2, y2 = _xyz(F, q_aff)
     t0 = F.mul(x1, x2)
     t1 = F.mul(y1, y2)
     t3 = F.sub(F.mul(F.add(x1, y1), F.add(x2, y2)), F.add(t0, t1))
@@ -88,13 +140,13 @@ def proj_add_mixed(F: Field, p: torch.Tensor, q_aff: torch.Tensor, b3: int):
     return _finish(F, t0, t1, z1, t3, t4, y3, b3)
 
 
-def proj_dbl(F: Field, p: torch.Tensor, b3: int):
+def proj_dbl(F, p: torch.Tensor, b3):
     """2p, RCB16 algorithm 9 (complete)."""
-    x, y, z = _xyz(p)
+    x, y, z = _xyz(F, p)
     t0 = F.mul(y, y)
     z3 = F.dbl(F.dbl(F.dbl(t0)))
     t1 = F.mul(y, z)
-    t2 = F.mul_small(F.mul(z, z), b3)
+    t2 = _mul_b3(F, F.mul(z, z), b3)
     x3 = F.mul(t2, z3)
     y3 = F.add(t0, t2)
     z3 = F.mul(t1, z3)
@@ -102,29 +154,29 @@ def proj_dbl(F: Field, p: torch.Tensor, b3: int):
     t0 = F.sub(t0, t2)
     y3 = F.add(x3, F.mul(t0, y3))
     x3 = F.dbl(F.mul(t0, F.mul(x, y)))
-    return torch.stack((x3, y3, z3), dim=-2)
+    return torch.stack((x3, y3, z3), dim=-1 - len(F.shape))
 
 
-def to_affine_host(F: Field, pts: torch.Tensor) -> list:
-    """(k, 3, n) projective tensor -> host affine tuples (None for the
-    identity), through one Python inversion per point."""
-    xs, ys, zs = (F.unpack_mont(pts[:, i, :]) for i in range(3))
+def to_affine_host(F, pts: torch.Tensor) -> list:
+    """(k, 3, *F.shape) projective tensor -> host affine points (ints, or
+    (c0, c1) tuples over Fq2; None for the identity), through one batched
+    host inversion of the Z coordinates (a Fermat inversion per point
+    costs about a second per BW6-761 MSM)."""
+    H = F.host
+    xs, ys, zs = (F.unpack_mont(c) for c in _xyz(F, pts))
     out = []
-    for x, y, z in zip(xs, ys, zs):
-        if z == 0:
-            out.append(None)
-        else:
-            zi = pow(z, -1, F.p)
-            out.append((x * zi % F.p, y * zi % F.p))
+    for x, y, z, zi in zip(xs, ys, zs, hf.batch_inverse(H, zs)):
+        out.append(None if H.is_zero(z) else (H.mul(x, zi), H.mul(y, zi)))
     return out
 
 
-def pack_affine(F: Field, pts, device) -> tuple:
-    """Host affine points (or None) -> ((k, 2, n) Montgomery tensor,
+def pack_affine(F, pts, device) -> tuple:
+    """Host affine points (or None) -> ((k, 2, *F.shape) Montgomery tensor,
     (k,) bool infinity mask); the identity packs as (0, 0)."""
+    zero = F.host.zero()
     flat = []
     for pt in pts:
-        flat.extend((0, 0) if pt is None else pt)
-    xy = F.pack_mont(flat, device).reshape(len(pts), 2, F.n)
+        flat.extend((zero, zero) if pt is None else pt)
+    xy = F.pack_mont(flat, device).reshape(len(pts), 2, *F.shape)
     inf = torch.tensor([pt is None for pt in pts], dtype=torch.bool)
     return xy, inf.to(device)

@@ -31,14 +31,12 @@ tensors on the CPU; for CUDA tensors it launches the kernel or raises.
 
 from __future__ import annotations
 
-import functools
+import collections
 
-import numpy as np
 import torch
 
 from ..ec import host_curve as hc
 from ..ff import params as P
-from ..ff.fp_torch import Field
 from . import curve_torch as ct
 
 #: most entries one kernel thread sums: long runs (bit-heavy witness
@@ -73,16 +71,7 @@ def num_windows(nbits: int, c: int) -> int:
 # ---------------------------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=None)
-def _host_params(F: Field):
-    p = np.frombuffer(F.p.to_bytes(4 * F.n, "little"), dtype="<u4").copy()
-    one = np.frombuffer(
-        F.r_mod_p.to_bytes(4 * F.n, "little"), dtype="<u4"
-    ).copy()
-    return p, one
-
-
-def bucket_reduce_ref(pts, ent, seg, F: Field, b3: int, affine: bool):
+def bucket_reduce_ref(pts, ent, seg, F, b3, affine: bool):
     """Plain version of the kernel: segment s sums the points named by
     ent[seg[s]:seg[s+1]] (entry = index << 1 | negate) from (0:1:0), one
     entry per step across all segments still running."""
@@ -96,9 +85,9 @@ def bucket_reduce_ref(pts, ent, seg, F: Field, b3: int, affine: bool):
         rows = (lens > j).nonzero().squeeze(-1)
         e = ent[lo[rows] + j].long()
         q = pts[e >> 1]
-        neg = (e & 1).bool().unsqueeze(-1)
-        y = torch.where(neg, F.neg(q[:, 1, :]), q[:, 1, :])
-        q = torch.cat([q[:, :1, :], y.unsqueeze(1), q[:, 2:, :]], dim=1)
+        neg = (e & 1).bool().view(-1, *[1] * len(F.shape))
+        y = torch.where(neg, F.neg(q[:, 1]), q[:, 1])
+        q = torch.cat([q[:, :1], y.unsqueeze(1), q[:, 2:]], dim=1)
         a = acc[rows]
         acc[rows] = (
             ct.proj_add_mixed(F, a, q, b3) if affine
@@ -107,13 +96,15 @@ def bucket_reduce_ref(pts, ent, seg, F: Field, b3: int, affine: bool):
     return acc
 
 
-def bucket_reduce(pts, ent, seg, F: Field, b3: int, affine: bool):
-    """Segment sums of points: (nseg, 3, n) int32 projective partials.
+def bucket_reduce(pts, ent, seg, F, b3, affine: bool):
+    """Segment sums of points: (nseg, 3, *F.shape) int32 projective
+    partials.
 
-    ``pts``: (k, 2, n) affine or (k, 3, n) projective int32 Montgomery
-    rows; ``ent``: int32 entries (point index << 1 | negate); ``seg``:
-    (nseg + 1,) int32 offsets into ``ent``.  CPU tensors take the plain
-    version; CUDA tensors launch ``csrc/bucket_reduce.cu``."""
+    ``pts``: (k, 2, *F.shape) affine or (k, 3, *F.shape) projective int32
+    Montgomery rows over Fq or Fq2; ``ent``: int32 entries (point index <<
+    1 | negate); ``seg``: (nseg + 1,) int32 offsets into ``ent``.  CPU
+    tensors take the plain version; CUDA tensors launch
+    ``csrc/bucket_reduce.cu`` in the field's form."""
     if pts.device.type == "cpu":
         return bucket_reduce_ref(pts, ent, seg, F, b3, affine)
     if pts.device.type != "cuda":
@@ -126,30 +117,34 @@ def bucket_reduce(pts, ent, seg, F: Field, b3: int, affine: bool):
                 f"{pts.device}, got {t.dtype} on {t.device}"
             )
     width = 2 if affine else 3
-    if pts.dim() != 3 or pts.shape[1:] != (width, F.n):
+    if tuple(pts.shape[1:]) != (width, *F.shape):
         raise ValueError(f"bucket_reduce: pts shape {tuple(pts.shape)}")
-    from ..utils.build import cuda_libs
+    from ..utils.build import cuda_kernels
 
     nseg = seg.numel() - 1
-    out = torch.empty((max(nseg, 0), 3, F.n), dtype=torch.int32,
+    out = torch.empty((max(nseg, 0), 3, *F.shape), dtype=torch.int32,
                       device=pts.device)
     if nseg <= 0:
         return out
-    p, one = _host_params(F)
-    launch = cuda_libs()[(F.n, int(affine))]
+    form = ct.form_of(F)
+    p, one, pinv, b3_buf = ct.kernel_consts(F, b3)
+    launch = cuda_kernels()[("zt_bucket_reduce", (form, int(affine)))]
     rc = launch(
-        pts.data_ptr(), ent.data_ptr(), seg.data_ptr(),
-        nseg, out.data_ptr(), p.ctypes.data, one.ctypes.data, F.pinv32, b3,
+        pts.data_ptr(), ent.data_ptr(), seg.data_ptr(), nseg, out.data_ptr(),
+        p.ctypes.data, one.ctypes.data, pinv, b3_buf.ctypes.data,
         torch.cuda.current_stream(pts.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"bucket_reduce launch failed: CUDA error {rc}")
     bucket_reduce.launches += 1
+    bucket_reduce.launches_by_form[form] += 1
     return out
 
 
-#: kernel launches since the count was last set to 0
+#: kernel launches since the counts were last reset, in all and per field
+#: form ("fq12", "fq24", "fq2")
 bucket_reduce.launches = 0
+bucket_reduce.launches_by_form = collections.Counter()
 
 
 def segments(counts: torch.Tensor, n_ent: int):
@@ -169,9 +164,9 @@ def segments(counts: torch.Tensor, n_ent: int):
     return seg, nch
 
 
-def reduce_runs(pts, ent, counts, F: Field, b3: int, affine: bool):
+def reduce_runs(pts, ent, counts, F, b3, affine: bool):
     """Sums of consecutive runs of ``ent`` (run i has counts[i] entries):
-    (len(counts), 3, n) projective, identity for empty runs.  Runs are cut
+    (len(counts), 3, *F.shape) projective, identity for empty runs.  Runs are cut
     into segments of at most SEG entries; the segment partials of each run
     are summed by further launches until one partial per run is left."""
     nruns = counts.numel()
@@ -241,9 +236,11 @@ def msm(curve_name: str, g2: bool, scal, xy, inf, c: int = 0):
     """sum_i scal[i] * P_i -> host affine point (None for the identity).
 
     ``scal``: (n, nl) int32 standard-form limbs of scalars < r; ``xy``:
-    (n, 2, nq) int32 affine Montgomery points; ``inf``: (n,) bool mask of
-    points at infinity.  All three on one device."""
-    F = ct.base_field(curve_name)
+    (n, 2, *F.shape) int32 affine Montgomery points over the group's
+    coordinate field (``curve_torch.coord_field``: (n, 2, 2, 12) for
+    BLS12-377 G2); ``inf``: (n,) bool mask of points at infinity.  All
+    three on one device."""
+    F = ct.coord_field(curve_name, g2)
     b3 = ct.b3_of(curve_name, g2)
     n = xy.shape[0]
     if scal.shape[0] != n or inf.shape[0] != n:

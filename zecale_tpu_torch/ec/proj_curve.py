@@ -1,0 +1,152 @@
+"""The msm8 engine's curve object, with its group law on the card.
+
+Ports ``ec/ec_pallas.py:PallasProjCurve`` (745-792) and the glue of
+``ec/curve_jax.py:ProjCurve`` (49): a complete-RCB projective curve whose
+``add``, ``dbl`` and ``dbl_chain`` run as hand-written kernels and whose
+element-wise glue (mask, select, identity, from_affine) is plain torch.
+
+  * K2 ``proj_add`` (``csrc/proj_kernels.cu`` zt_proj_add) replaces
+    ``_KernelFamily.proj_add`` (573-594): B independent pairs, canonical
+    outputs;
+  * K3 ``proj_dbl_chain`` (zt_proj_dbl_chain) replaces
+    ``_KernelFamily.proj_dbl_chain`` (596-619): 2^k P by k doublings in one
+    launch.
+
+Both exist in three forms, by the group's coordinate field: BLS12-377 Fq
+(12 limbs), BW6-761 Fq (24 limbs, G1 and G2) and BLS12-377 Fq2.  Points are
+int32 tensors (..., 3, *F.shape), as in ``ec/curve_torch.py``.  A wrapper
+takes its plain version (``curve_torch.proj_add``, k times
+``curve_torch.proj_dbl``) only for tensors on the CPU; on a CUDA tensor it
+launches its kernel or raises.  Each keeps a count of its launches.
+"""
+
+from __future__ import annotations
+
+import collections
+import math
+
+import torch
+
+from . import curve_torch as ct
+
+
+def _check(name: str, F, *ts) -> None:
+    for t in ts:
+        if (t.device != ts[0].device or t.dtype != torch.int32
+                or not t.is_contiguous()
+                or tuple(t.shape[-1 - len(F.shape):]) != (3, *F.shape)):
+            raise ValueError(
+                f"{name}: points must be contiguous int32 (..., 3, "
+                f"{', '.join(map(str, F.shape))}) on one device, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _launch(name: str, sym: str, F, b3, out, *args) -> None:
+    from ..utils.build import cuda_kernels
+
+    p, one, pinv, b3_buf = ct.kernel_consts(F, b3)
+    fn = cuda_kernels()[(sym, (ct.form_of(F),))]
+    rc = fn(*args, p.ctypes.data, one.ctypes.data, pinv, b3_buf.ctypes.data,
+            torch.cuda.current_stream(out.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
+def proj_add(F, p: torch.Tensor, q: torch.Tensor, b3) -> torch.Tensor:
+    """p + q for equal-shape point batches (complete RCB add)."""
+    if p.device.type == "cpu":
+        return ct.proj_add(F, p, q, b3)
+    if p.device.type != "cuda":
+        raise ValueError(f"proj_add: unsupported device {p.device}")
+    if p.shape != q.shape:
+        raise ValueError(f"proj_add: shapes {tuple(p.shape)} and "
+                         f"{tuple(q.shape)} differ")
+    _check("proj_add", F, p, q)
+    out = torch.empty_like(p)
+    n = p.numel() // (3 * math.prod(F.shape))
+    if n:
+        _launch("proj_add", "zt_proj_add", F, b3, out, p.data_ptr(),
+                q.data_ptr(), out.data_ptr(), n)
+        proj_add.launches += 1
+        proj_add.launches_by_form[ct.form_of(F)] += 1
+    return out
+
+
+def proj_dbl_chain(F, p: torch.Tensor, k: int, b3) -> torch.Tensor:
+    """2^k p (k >= 1 complete RCB doublings)."""
+    if k < 1:
+        raise ValueError(f"proj_dbl_chain: k = {k} < 1")
+    if p.device.type == "cpu":
+        for _ in range(k):
+            p = ct.proj_dbl(F, p, b3)
+        return p
+    if p.device.type != "cuda":
+        raise ValueError(f"proj_dbl_chain: unsupported device {p.device}")
+    _check("proj_dbl_chain", F, p)
+    out = torch.empty_like(p)
+    n = p.numel() // (3 * math.prod(F.shape))
+    if n:
+        _launch("proj_dbl_chain", "zt_proj_dbl_chain", F, b3, out,
+                p.data_ptr(), out.data_ptr(), n, k)
+        proj_dbl_chain.launches += 1
+        proj_dbl_chain.launches_by_form[ct.form_of(F)] += 1
+    return out
+
+
+#: kernel launches since the counts were last reset, in all and per form
+proj_add.launches = 0
+proj_add.launches_by_form = collections.Counter()
+proj_dbl_chain.launches = 0
+proj_dbl_chain.launches_by_form = collections.Counter()
+
+
+class ProjCurve:
+    """The group G1 or G2 of an a = 0 curve with the complete RCB law;
+    points are (..., 3, *F.shape) int32 tensors, identity (0:1:0)."""
+
+    def __init__(self, curve_name: str, g2: bool):
+        self.curve_name = curve_name
+        self.g2 = g2
+        self.F = ct.coord_field(curve_name, g2)
+        self.b3 = ct.b3_of(curve_name, g2)
+        self._cdims = len(self.F.shape)
+
+    # -- kernel-backed ops ------------------------------------------------
+    def add(self, p, q):
+        return proj_add(self.F, p.contiguous(), q.contiguous(), self.b3)
+
+    def dbl(self, p):
+        return self.dbl_chain(p, 1)
+
+    def dbl_chain(self, p, k: int):
+        if k == 0:
+            return p
+        return proj_dbl_chain(self.F, p.contiguous(), k, self.b3)
+
+    # -- glue -------------------------------------------------------------
+    def _bcast(self, mask):
+        """(...,) bool -> broadcastable against (..., 3, *F.shape)."""
+        return mask.view(*mask.shape, *[1] * (1 + self._cdims))
+
+    def identity_like(self, pt):
+        return ct.identity(self.F, pt.shape[: -1 - self._cdims], pt.device)
+
+    def mask(self, pt, keep):
+        """Identity-out the points where ``keep`` is False (all three
+        coordinates: the complete law needs points on the curve)."""
+        return torch.where(self._bcast(keep), pt, self.identity_like(pt))
+
+    def select(self, cond, if_true, if_false):
+        return torch.where(self._bcast(cond), if_true, if_false)
+
+    def from_affine(self, xy, inf):
+        """(..., 2, *F.shape) affine + (...,) infinity mask -> projective
+        (identity where ``inf``)."""
+        lead = xy.shape[: xy.dim() - 1 - self._cdims]
+        one = self.F.consts(xy.device)["one"].expand(*lead, 1, *self.F.shape)
+        pt = torch.cat([xy, one], dim=-1 - self._cdims)
+        return self.mask(pt, ~inf)
+
+    def to_affine_host(self, pts) -> list:
+        flat = pts.reshape(-1, 3, *self.F.shape)
+        return ct.to_affine_host(self.F, flat)

@@ -31,6 +31,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from . import host_field as hf
+
 MASK = 0xFFFF
 #: rows per chunk of a multiply: bounds the (rows, 2n, 4n) int64 product
 #: temporaries to about 1 GB for the widest field (BW6-761 Fq, n = 24)
@@ -71,33 +73,40 @@ def _digits(v: int, m: int) -> list:
 
 
 def _to16(t: torch.Tensor) -> torch.Tensor:
-    x = t.to(torch.int64) & 0xFFFFFFFF
-    return torch.stack((x & MASK, x >> 16), dim=-1).flatten(-2)
+    """(..., n) int32 limbs -> (..., 2n) int64 16-bit digits: each limb
+    viewed as its two little-endian int16 halves."""
+    return t.contiguous().view(torch.int16).to(torch.int64) & MASK
 
 
 def _from16(d: torch.Tensor) -> torch.Tensor:
-    d = d.unflatten(-1, (-1, 2))
-    v = d[..., 0] | (d[..., 1] << 16)
-    return (v - ((v >> 31) << 32)).to(torch.int32)
+    """(..., 2n) canonical 16-bit digits -> (..., n) int32 limbs."""
+    d = (d - ((d >> 15) << 16)).to(torch.int16)
+    return d.contiguous().view(torch.int32)
 
 
-def _norm(x: torch.Tensor) -> torch.Tensor:
-    """Non-negative digit columns (each < 2^48) -> canonical 16-bit digits
-    of the same value mod 2^(16 * width); the carry out of the top column
-    is dropped (callers size the width so that it is zero or wanted gone)."""
-    for _ in range(3):  # < 2^48 -> < 2^32+2^16 -> < 2^17 -> <= 2^16
+@functools.lru_cache(maxsize=None)
+def _positions(k: int, device: str) -> torch.Tensor:
+    return torch.arange(1, k + 1, device=device)
+
+
+def _norm(x: torch.Tensor, folds: int = 3) -> torch.Tensor:
+    """Non-negative digit columns -> canonical 16-bit digits of the same
+    value mod 2^(16 * width); the carry out of the top column is dropped
+    (callers size the width so that it is zero or wanted gone).  Three
+    folds take columns < 2^48 to <= 2^16 (< 2^32+2^16, < 2^17, <= 2^16);
+    one fold does for columns < 2^17 (sums of two digit rows)."""
+    for _ in range(folds):
         c = x >> 16
         x = x & MASK
         x[..., 1:] += c[..., :-1]
     g = x >> 16  # generate: digit is exactly 2^16
     x = x & MASK
-    stop = (g == 1) | (x != MASK)  # carry out decided here, = g
-    k = x.shape[-1]
-    idx = torch.arange(k, device=x.device).expand_as(x)
-    last = torch.where(stop, idx, torch.full_like(idx, -1)).cummax(-1).values
-    cout = torch.where(
-        last >= 0, g.gather(-1, last.clamp(min=0)), torch.zeros_like(g)
-    )
+    # carry out of column i = g at the last column <= i that decides it
+    # (generates, or is not all ones); 1-based so that 0 means none
+    stop = (g == 1) | (x != MASK)
+    pos = torch.where(stop, _positions(x.shape[-1], str(x.device)), 0)
+    last = pos.cummax(-1).values
+    cout = torch.nn.functional.pad(g, (1, 0)).gather(-1, last)
     x[..., 1:] += cout[..., :-1]
     return x & MASK
 
@@ -114,17 +123,6 @@ def _conv(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.pad(cols, (0, 1))
 
 
-def _geq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a >= b for canonical digit rows of equal width."""
-    b = b.expand_as(a)
-    ne = a != b
-    k = a.shape[-1]
-    idx = torch.arange(k, device=a.device).expand_as(a)
-    top = torch.where(ne, idx, torch.full_like(idx, -1)).max(-1).values
-    at = top.clamp(min=0).unsqueeze(-1)
-    return (top < 0) | (a.gather(-1, at) > b.gather(-1, at)).squeeze(-1)
-
-
 class Field:
     """One prime field: constants plus batched ops on limb tensors."""
 
@@ -132,6 +130,10 @@ class Field:
         self.p = p
         self.n = num_limbs(p)
         self.m = 2 * self.n
+        #: trailing shape of one element (``fp2_torch.Fp2``: (2, n))
+        self.shape = (self.n,)
+        #: the host field of Python ints, for the few host-side steps
+        self.host = hf.PrimeField(p)
         self.R = 1 << (32 * self.n)
         self.r_mod_p = self.R % p
         self.r2 = self.R * self.R % p
@@ -152,7 +154,6 @@ class Field:
             m = self.m
             c = {
                 "p": t(self.p, m),
-                "p1": t(self.p, m + 1),
                 # 2^(16(m+1)) - p: adding it and dropping the top carry
                 # subtracts p from an (m+1)-digit value
                 "pc1": t((1 << (16 * (m + 1))) - self.p, m + 1),
@@ -185,25 +186,27 @@ class Field:
 
     # -- ring ops -----------------------------------------------------------
     def _cond_sub(self, s: torch.Tensor, c: dict) -> torch.Tensor:
-        """(m+1)-digit canonical s in [0, 2p) -> m digits in [0, p)."""
-        ge = _geq(s, c["p1"])
-        d = _norm(s + c["pc1"])
+        """(m+1) canonical digits of s in [0, 2p) -> m digits in [0, p).
+        s - p mod 2^(16(m+1)) has top digit 0 exactly when s >= p (since
+        p < 2^(16m)), and 0xFFFF otherwise."""
+        d = _norm(s + c["pc1"], 1)
+        ge = d[..., self.m] == 0
         return torch.where(ge.unsqueeze(-1), d, s)[..., : self.m]
 
     def add(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         c = self.consts(a.device)
         s = torch.nn.functional.pad(_to16(a) + _to16(b), (0, 1))
-        return _from16(self._cond_sub(_norm(s), c))
+        return _from16(self._cond_sub(_norm(s, 1), c))
 
     def sub(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         c = self.consts(a.device)
         # a + (R - b) = a - b + R: the top digit is 1 exactly when a >= b
         s = torch.nn.functional.pad(_to16(a) + (MASK - _to16(b)), (0, 1))
         s[..., 0] += 1
-        s = _norm(s)
+        s = _norm(s, 1)
         ge = s[..., self.m] == 1
         low = s[..., : self.m]
-        wrapped = _norm(low + c["p"])  # a - b + p, mod R
+        wrapped = _norm(low + c["p"], 1)  # a - b + p, mod R
         return _from16(torch.where(ge.unsqueeze(-1), low, wrapped))
 
     def neg(self, a: torch.Tensor) -> torch.Tensor:

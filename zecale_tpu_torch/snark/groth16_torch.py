@@ -9,8 +9,13 @@ Ports ``snark/groth16_tpu.py`` (``DevicePk8`` 201, ``pack_pk8`` 227,
   * fft: the QAP division ``poly/fft_torch.h_pipeline`` on the device;
   * digitize: H to standard form on the device, the assignment packed as
     32-bit scalar limbs;
-  * msm: A, B1, L, H in G1 and B2 in G2 through ``ec/msm.py``, whose bucket
-    sums run in the CUDA kernel ``csrc/bucket_reduce.cu``;
+  * msm: A, B1, L, H in G1 and B2 in G2 through one of the two engines
+    of the reference: ``"msm4"`` (``ec/msm.py``, bucket sums in the CUDA
+    kernel ``csrc/bucket_reduce.cu``) or ``"msm8"`` (``ec/msm8.py``, every
+    group operation in ``csrc/proj_kernels.cu``), chosen as
+    ``groth16_tpu.py:510-513`` chooses: ``ZECALE_USE_MSM8`` set selects
+    msm8.  The coordinates of BW6-761 G1 and G2 lie in Fq; BLS12-377 G2
+    lies in Fq2 (``ff/fp2_torch.py``);
   * assembly: on the host exactly as ``groth16_tpu.py:566-580``, drawing
     rr then ss from ``rng``, so one ``random.Random`` state gives the same
     proof as the reference's provers.
@@ -19,6 +24,7 @@ Ports ``snark/groth16_tpu.py`` (``DevicePk8`` 201, ``pack_pk8`` 227,
 from __future__ import annotations
 
 import dataclasses
+import os
 import random
 import time
 from typing import Optional, Sequence
@@ -28,7 +34,7 @@ import torch
 
 from ..ec import curve_torch as ct
 from ..ec import host_curve as hc
-from ..ec import msm
+from ..ec import msm, msm8
 from ..ff import params as P
 from ..ff.fp_torch import field
 from ..native.witness import NativeR1CS
@@ -79,10 +85,10 @@ def pack_pk(curve_name: str, pk: Groth16ProvingKey, num_pub: int,
             device=None) -> DevicePk:
     """Host proving key -> DevicePk on ``device`` (``pack_pk8``)."""
     device = resolve(device)
-    F = ct.base_field(curve_name)
     n_g1, n_g2 = _query_lengths(pk)
 
-    def q(pts, n):
+    def q(pts, n, g2=False):
+        F = ct.coord_field(curve_name, g2)
         xy, inf = ct.pack_affine(F, list(pts) + [None] * (n - len(pts)),
                                  device)
         return {"xy": xy, "inf": inf}
@@ -93,7 +99,7 @@ def pack_pk(curve_name: str, pk: Groth16ProvingKey, num_pub: int,
         delta_g1=pk.delta_g1, delta_g2=pk.delta_g2,
         a_query=q(pk.a_query, n_g1),
         b_g1_query=q(pk.b_g1_query, n_g1),
-        b_g2_query=q(pk.b_g2_query, n_g2),
+        b_g2_query=q(pk.b_g2_query, n_g2, g2=True),
         l_query=q(pk.l_query, n_g1),
         h_query=q(pk.h_query, n_g1),
     )
@@ -104,7 +110,8 @@ def from_reference_pk8(arrays: dict, curve_name: str, num_pub: int,
     """The JAX package's DevicePk8 as numpy -> the port's DevicePk.
 
     ``arrays[name]`` for each query name holds ``x`` and ``y`` ((n, L8)
-    arrays of 8-bit Montgomery limbs, R = 2^(8 L8)) and ``inf`` ((n,)
+    arrays of 8-bit Montgomery limbs, R = 2^(8 L8); (n, 2, L8) for the
+    BLS12-377 G2 query, whose coordinates lie in Fq2) and ``inf`` ((n,)
     bool); ``points`` holds the host affine alpha_g1, beta_g1, beta_g2,
     delta_g1 and delta_g2.  Both representations share R, so the bytes
     regroup into 32-bit limbs unchanged."""
@@ -136,18 +143,31 @@ def from_reference_pk8(arrays: dict, curve_name: str, num_pub: int,
     )
 
 
+ENGINES = ("msm4", "msm8")
+
+
+def default_engine() -> str:
+    """The reference's choice (``groth16_tpu.py:510-513``): msm8 when
+    ``ZECALE_USE_MSM8`` is set to anything non-empty, else msm4."""
+    return "msm8" if os.environ.get("ZECALE_USE_MSM8") else "msm4"
+
+
 class Groth16Torch:
-    """Device Groth16 prover over BW6-761 (or another a = 0 curve whose G2
-    coordinates lie in Fq)."""
+    """Device Groth16 prover over an a = 0 curve: BW6-761 (the wrapper) or
+    BLS12-377 (the nested application proofs, G2 over Fq2).  ``engine``
+    is "msm4" or "msm8"; None reads ``ZECALE_USE_MSM8``."""
 
     name = "GROTH16"
 
-    def __init__(self, curve_name: str, device=None):
+    def __init__(self, curve_name: str, device=None, engine=None):
         self.curve_name = curve_name
         self.device = resolve(device)
+        self.engine = engine or default_engine()
+        if self.engine not in ENGINES:
+            raise ValueError(f"engine {self.engine!r} not in {ENGINES}")
         self.r = P.CURVES[curve_name].r
         self.Fr = field(self.r)
-        ct.b3_of(curve_name, True)  # refuses Fq2 G2 curves up front
+        ct.b3_of(curve_name, True)  # refuses curves the law does not serve
         self.g1_host = hc.g1_curve(curve_name)
         self.g2_host = hc.g2_curve(curve_name)
 
@@ -209,6 +229,9 @@ class Groth16Torch:
         t0 = mark("digitize")
 
         def run(g2, scal, query):
+            if self.engine == "msm8":
+                return msm8.msm8(self.curve_name, g2, scal, query["xy"],
+                                 query["inf"])
             return msm.msm(self.curve_name, g2, scal, query["xy"],
                            query["inf"])
 

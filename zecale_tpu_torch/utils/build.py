@@ -1,8 +1,9 @@
 """Build of the port's hand-written kernels into plain-C shared libraries.
 
-``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one ``.so`` with a
-plain C interface, loaded with ``ctypes``: no PyTorch headers, so the build
-takes seconds rather than the minutes of ``torch.utils.cpp_extension``.  The
+``nvcc`` compiles each kernel source of ``KERNELS`` for ``sm_90a``, once
+per variant (field form, input form), into a ``.so`` with a plain C
+interface, loaded with ``ctypes``: no PyTorch headers, so the build takes
+seconds rather than the minutes of ``torch.utils.cpp_extension``.  The
 same headers also build with ``g++`` into a CPU library (``host_check.cpp``)
 that the tests run here.  Builds happen at first use, land in the
 git-ignored ``zecale_tpu_torch/_build/`` under a name keyed by a hash of the
@@ -17,6 +18,7 @@ import functools
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -86,32 +88,96 @@ def nvcc_path() -> str:
     return path
 
 
-#: (limb count, affine input) variants of the kernels: BLS12-377 Fq and
-#: BW6-761 Fr have 12 limbs, BW6-761 Fq 24
-VARIANTS = ((12, 1), (12, 0), (24, 1), (24, 0))
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+
+#: -D flags of each field form: BLS12-377 Fq and BW6-761 Fr have 12 limbs,
+#: BW6-761 Fq 24, and BLS12-377 Fq2 is 2 x 12
+FORMS = {
+    "fq12": ["-DZT_LIMBS=12"],
+    "fq24": ["-DZT_LIMBS=24"],
+    "fq2": ["-DZT_FQ2=1"],
+}
+
+#: One entry per kernel source: its variants (key -> -D flags, one nvcc and
+#: one library each) and the C functions every variant exports, with their
+#: ctypes argtypes.  Every launcher returns the CUDA error code (int).
+KERNELS = {
+    "bucket_reduce.cu": {
+        "variants": {
+            (form, affine): flags + [f"-DZT_AFFINE={affine}"]
+            for form, flags in FORMS.items() for affine in (1, 0)
+        },
+        # pts, ent, seg, nseg, out, p, one, pinv, b3, stream
+        "symbols": {
+            "zt_bucket_reduce": [_VP, _VP, _VP, _CI, _VP, _VP, _VP,
+                                 ctypes.c_uint, _VP, _VP],
+        },
+    },
+    "proj_kernels.cu": {
+        "variants": {(form,): flags for form, flags in FORMS.items()},
+        "symbols": {
+            # p, q, out, n, prime, one, pinv, b3, stream
+            "zt_proj_add": [_VP, _VP, _VP, _CI, _VP, _VP, ctypes.c_uint,
+                            _VP, _VP],
+            # p, out, n, k, prime, one, pinv, b3, stream
+            "zt_proj_dbl_chain": [_VP, _VP, _CI, _CI, _VP, _VP,
+                                  ctypes.c_uint, _VP, _VP],
+        },
+    },
+}
 
 
 @functools.lru_cache(maxsize=None)
-def cuda_libs() -> dict:
-    """{(limbs, affine): ctypes function} of the kernels, built on first
-    use: one nvcc per (source, variant), all started together."""
-    jobs = [
-        (n, a, _Job([nvcc_path()], [src],
-                    NVCC_FLAGS + [f"-DZT_LIMBS={n}", f"-DZT_AFFINE={a}"],
-                    f"{os.path.basename(src)[:-3]}{n}{'a' if a else 'p'}"))
-        for src in _sources("*.cu") for n, a in VARIANTS
-    ]
-    fns = {}
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    for n, a, job in jobs:
-        lib = ctypes.CDLL(job.wait())
-        # attribute access caches the function object on the library, so
-        # the argtypes set here stay with it
-        fn = getattr(lib, f"zt_bucket_reduce_{n}_{a}")
-        fn.argtypes = [vp, vp, vp, ci, vp, vp, vp, ctypes.c_uint, ci, vp]
-        fn.restype = ci
-        fns[(n, a)] = fn
+def cuda_kernels() -> dict:
+    """{(symbol, variant key): ctypes function} of every kernel in
+    ``KERNELS``, built on first use: one nvcc per (source, variant), all
+    started together before the first one is waited for."""
+    nvcc = nvcc_path()
+    jobs = []
+    for src, spec in KERNELS.items():
+        stem = src.rsplit(".", 1)[0]
+        for key, flags in spec["variants"].items():
+            name = "-".join([stem, *map(str, key)])
+            job = _Job([nvcc], [os.path.join(CSRC, src)], NVCC_FLAGS + flags,
+                       name)
+            jobs.append((spec["symbols"], key, job))
+    fns, failed = {}, []
+    for symbols, key, job in jobs:
+        try:
+            path = job.wait()
+        except RuntimeError as e:  # wait for the others, then report all
+            failed.append(str(e))
+            continue
+        lib = ctypes.CDLL(path)
+        for sym, argtypes in symbols.items():
+            # attribute access caches the function object on the library,
+            # so the argtypes set here stay with it
+            fn = getattr(lib, sym)
+            fn.argtypes = argtypes
+            fn.restype = _CI
+            fns[(sym, key)] = fn
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return fns
+
+
+def build_report() -> list:
+    """One line per job of this process: seconds, and the ptxas register
+    and spill lines of its log."""
+    out = []
+    for stem, info in sorted(last_build.items()):
+        if info["log"] == "cached":
+            out.append(f"{stem}: cached ({info['path']})")
+            continue
+        regs = []
+        for ln in info["log"].splitlines():
+            kernel = re.search(r"([a-z][a-z_]*_kernel)I", ln)
+            if "entry function" in ln and kernel:
+                regs.append(kernel.group(1))
+            elif "registers" in ln or "spill" in ln:
+                regs.append(ln.split(":", 1)[-1].strip())
+        out.append(f"{stem}: {info['seconds']:.1f}s {regs}")
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -126,6 +192,9 @@ def host_check_lib() -> ctypes.CDLL:
                                   ctypes.c_uint]
     lib.zt_cpu_fp_mul.restype = ci
     lib.zt_cpu_bucket_reduce.argtypes = [ci, ci, vp, vp, vp, ci, vp, vp, vp,
-                                         ctypes.c_uint, ci]
+                                         ctypes.c_uint, vp]
     lib.zt_cpu_bucket_reduce.restype = ci
+    lib.zt_cpu_proj.argtypes = [ci, vp, vp, vp, ctypes.c_long, ci, vp, vp,
+                                ctypes.c_uint, vp]
+    lib.zt_cpu_proj.restype = ci
     return lib
