@@ -4,31 +4,45 @@
 Phases, each printing one flushed line with its seconds:
 
   1. the card (nvidia-smi name and power limit) and the nvcc build of every
-     kernel (nine nvcc processes started together; budget 60 s), with each
-     job's seconds and its ptxas register and spill lines;
+     kernel (twelve nvcc processes started together; budget 60 s), with
+     each job's seconds and its ptxas register and spill lines;
   2. the bucket-reduce kernel (K1) against its plain PyTorch version on the
      card, for BW6-761 G1 (b3=-3), BW6-761 G2 (b3=12), BLS12-377 G1 (b3=3)
      and [2b] BLS12-377 G2 over Fq2 (twist b3): a few thousand crafted
      segments with empty buckets, single points, P+P, P+(-P) and repeated
-     points, then the launches of an MSM at n = 2^16, timed;
+     points, then, for BW6-761 G1 and BLS12-377 G2 (the Fq 24 and Fq2
+     variants that the kernel table reports), the launches of an MSM at
+     n = 2^16, timed;
      [2c] K2 proj_add and [2d] K3 proj_dbl_chain (k = 1, 6 and the
      wrapper's msm8 window c) against their plain versions in all three
      field forms (Fq 12 and 24 limbs, Fq2), a few thousand pairs with O+O,
      O+P, P+O, P+P, P+(-P) and Z != 1, then each timed at the largest shape
-     the msm8 wrapper prove gives it;
+     the msm8 wrapper prove gives it; [2e] K4 jac_add, K5 jac_dbl_chain
+     (k = 1, 3, 8) and K6 aff_add against their plain versions in the
+     three forms on a few thousand crafted cases (O+O, O+P and P+O with
+     nonzero X and Y at infinity, P+P with equal and with different Z,
+     P+(-P), distinct points; K6 with each infinity flag, P = Q, P = -Q),
+     then K4 and K6 timed at the first tiled round of the jac engine's
+     largest MSM (48 windows x 1,024 tiles of a BW6-761 G1 MSM at n =
+     2^16) and K5 at its Horner fold (one point, k = 8);
   3. a small Groth16 proof on the card equal to the host prover's; [3b] the
      nested BLS12-377 dummy-app proof made on the card (G2 over Fq2), equal
-     to the host prover's from the same rng state and valid; then the main
-     path: that proof wrapped in a batch-1 BW6-761 Groth16 proof by
+     to the host prover's from the same rng state and valid, its keypair
+     also made by the device setup (Groth16Torch.generate_setup, K4 and K6
+     over Fq 12 and Fq2) and equal to the host setup's; then the main
+     path: [3d] the wrapper's trusted setup on the card from a saved rng
+     state, equal to the native setup's keypair from the same state; that
+     proof wrapped in a batch-1 BW6-761 Groth16 proof by
      AggregatorCircuit.prove(prover=Groth16Torch), [3f] with the msm4
-     engine and [3g] again from the same rng state with the msm8 engine,
-     which must give the same proof bit for bit; both verify with primary
-     inputs [vk_hash, 1, 7]; a corrupt nested proof must give result bit 0
-     in a valid wrapper, and a tampered wrapper proof must be rejected;
-  4. bench.py's MSM shape on both engines: BLS12-377 G1 at n = 2^18 with
-     uniform scalars from random.Random(42) and 64 cycled bases, checked
-     against the folded host MSM, Mpoints/s after one warm-up run; and a
-     BLS12-377 G2 (Fq2) MSM at n = 2^16, equal across the engines;
+     engine and [3g] again from the same rng state with the msm8 engine
+     and with the jac engine, which must give the same proof bit for bit;
+     each verifies with primary inputs [vk_hash, 1, 7]; a corrupt nested
+     proof must give result bit 0 in a valid wrapper, and a tampered
+     wrapper proof must be rejected;
+  4. bench.py's MSM shape on the three engines: BLS12-377 G1 at n = 2^18
+     with uniform scalars from random.Random(42) and 64 cycled bases,
+     checked against the folded host MSM, Mpoints/s after one warm-up run;
+     and a BLS12-377 G2 (Fq2) MSM at n = 2^16, equal across the engines;
   5. a JSON line of the kernels with their launches on the main path, then
      the card's name and power limit, then {"ok": true, "device": ...}.
 
@@ -38,13 +52,15 @@ integers, so a kernel's limbs must equal the plain version's bit for bit.
 Any failed check raises and the script exits non-zero without the last
 line.  There is no CPU fallback: without a CUDA device it exits 1 at once.
 
-The wrapper keypair is cached in the temporary directory, never in the
-repository; the circuit holds witness closures, cannot be pickled, and is
-rebuilt (a few seconds).
+The native wrapper keypair is cached in the temporary directory, never in
+the repository, under a name keyed by a hash of the rng state it was made
+from and the circuit's size; the circuit holds witness closures, cannot be
+pickled, and is rebuilt (a few seconds).
 
 Usage: python3 chip_smoke.py
 """
 
+import hashlib
 import json
 import math
 import os
@@ -129,22 +145,34 @@ def dbl_muls(F) -> int:
     return 3 * 9 if len(F.shape) == 2 else 8
 
 
-def reset_counts() -> None:
+def jac_muls(F, op: str) -> int:
+    """Base-field products of one Jacobian op on finite, distinct inputs:
+    K4 add 16 (11M + 5S), K5 doubling 7 (2M + 5S), K6 affine add 6
+    (4M + 2S); three base products per Fq2 product."""
+    k = {"add": 16, "dbl": 7, "aff": 6}[op]
+    return 3 * k if len(F.shape) == 2 else k
+
+
+def counted() -> tuple:
+    """Every kernel wrapper that counts its launches."""
+    from zecale_tpu_torch.ec import jac_curve as jc
     from zecale_tpu_torch.ec import msm
     from zecale_tpu_torch.ec import proj_curve as pc
 
-    for fn in (msm.bucket_reduce, pc.proj_add, pc.proj_dbl_chain):
+    return (msm.bucket_reduce, pc.proj_add, pc.proj_dbl_chain, jc.jac_add,
+            jc.jac_dbl_chain, jc.aff_add)
+
+
+def reset_counts() -> None:
+    for fn in counted():
         fn.launches = 0
         fn.launches_by_form.clear()
 
 
 def read_counts() -> dict:
-    from zecale_tpu_torch.ec import msm
-    from zecale_tpu_torch.ec import proj_curve as pc
-
     return {fn.__name__: {"launches": fn.launches,
                           "by_form": dict(fn.launches_by_form)}
-            for fn in (msm.bucket_reduce, pc.proj_add, pc.proj_dbl_chain)}
+            for fn in counted()}
 
 
 # ---------------------------------------------------------------------------
@@ -223,47 +251,50 @@ def k1_phase(stats: dict) -> None:
         check(err == 0, f"{curve} g2={g2}: projective partials differ")
 
         # the launches of one MSM at the wrapper's shapes (n = 2^16,
-        # uniform scalars: the H MSM's distribution)
-        n = 1 << 16
-        r = P.CURVES[curve].r
-        Fr = field(r)
-        c = msm.default_window(n)
-        scal = Fr.pack([rng.randrange(r) for _ in range(n)], dev)
-        xy_n = xy[torch.arange(n, device=dev) % D].contiguous()
-        inf = torch.zeros(n, dtype=torch.bool, device=dev)
-        ent, counts = msm.bucket_entries(scal, inf, r.bit_length(), c)
-        seg, nch = msm.segments(counts, ent.numel())
-        levels = []
-        pts_l, ent_l, affine = xy_n, ent, True
-        while True:
-            run = lambda: msm.bucket_reduce(  # noqa: E731
-                pts_l, ent_l, seg, F, b3, affine)
-            got = run()
-            torch.cuda.synchronize()
-            t_ref = time.time()
-            ref = msm.bucket_reduce_ref(pts_l, ent_l, seg, F, b3, affine)
-            torch.cuda.synchronize()
-            plain_ms = (time.time() - t_ref) * 1e3
-            e = int((got.long() - ref.long()).abs().max())
-            check(e == 0, f"{curve} g2={g2}: MSM-shape partials differ")
-            err = max(err, e)
-            ms = cuda_ms(run, 3)
-            adds = ent_l.numel()
-            ops = adds * add_muls(F, mixed=affine) * mul_ops(F)
-            nbytes = (adds * (4 + (2 if affine else 3) * 4 * words(F))
-                      + seg.numel() * 4 + got.numel() * 4)
-            bound_ms, bound_by = bound(ops, nbytes)
-            levels.append({
-                "affine": affine, "segments": seg.numel() - 1,
-                "entries": adds, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by,
-            })
-            if int(nch.max()) <= 1:
-                break
-            pts_l, affine = got, False
-            ent_l = torch.arange(got.shape[0], dtype=torch.int32,
-                                 device=dev) * 2
-            seg, nch = msm.segments(nch, ent_l.numel())
+        # uniform scalars: the H MSM's distribution), timed, for the two
+        # groups the kernel table reports: the wrapper's G1 (Fq 24) and
+        # the nested G2 (Fq2).  BW6-761 G2 and BLS12-377 G1 share those
+        # kernel variants and keep the crafted segments above.
+        levels, c = [], msm.default_window(1 << 16)
+        if (curve, g2) in (("bw6-761", False), ("bls12-377", True)):
+            n = 1 << 16
+            r = P.CURVES[curve].r
+            Fr = field(r)
+            scal = Fr.pack([rng.randrange(r) for _ in range(n)], dev)
+            xy_n = xy[torch.arange(n, device=dev) % D].contiguous()
+            inf = torch.zeros(n, dtype=torch.bool, device=dev)
+            ent, counts = msm.bucket_entries(scal, inf, r.bit_length(), c)
+            seg, nch = msm.segments(counts, ent.numel())
+            pts_l, ent_l, affine = xy_n, ent, True
+            while True:
+                run = lambda: msm.bucket_reduce(  # noqa: E731
+                    pts_l, ent_l, seg, F, b3, affine)
+                got = run()
+                torch.cuda.synchronize()
+                t_ref = time.time()
+                ref = msm.bucket_reduce_ref(pts_l, ent_l, seg, F, b3, affine)
+                torch.cuda.synchronize()
+                plain_ms = (time.time() - t_ref) * 1e3
+                e = int((got.long() - ref.long()).abs().max())
+                check(e == 0, f"{curve} g2={g2}: MSM-shape partials differ")
+                err = max(err, e)
+                ms = cuda_ms(run, 3)
+                adds = ent_l.numel()
+                ops = adds * add_muls(F, mixed=affine) * mul_ops(F)
+                nbytes = (adds * (4 + (2 if affine else 3) * 4 * words(F))
+                          + seg.numel() * 4 + got.numel() * 4)
+                bound_ms, bound_by = bound(ops, nbytes)
+                levels.append({
+                    "affine": affine, "segments": seg.numel() - 1,
+                    "entries": adds, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                })
+                if int(nch.max()) <= 1:
+                    break
+                pts_l, affine = got, False
+                ent_l = torch.arange(got.shape[0], dtype=torch.int32,
+                                     device=dev) * 2
+                seg, nch = msm.segments(nch, ent_l.numel())
         stats[(curve, g2)] = {"max_abs_err": err, "levels": levels}
         tag = "[2b] " if len(F.shape) == 2 else ""
         b3s = "twist" if len(F.shape) == 2 else b3
@@ -421,8 +452,194 @@ def proj_phase(stats: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 2e: K4, K5 and K6 against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def jac_phase(stats: dict) -> None:
+    import torch
+
+    from zecale_tpu_torch.ec import curve_torch as ct
+    from zecale_tpu_torch.ec import host_curve as hc
+    from zecale_tpu_torch.ec import jac_curve as jc
+    from zecale_tpu_torch.ec import msm_jac
+    from zecale_tpu_torch.ff import params as P
+
+    dev = torch.device("cuda")
+    c = msm_jac.MSM_WINDOW_C
+
+    def tiled_lanes(curve: str, n: int) -> int:
+        """Lanes of the first tiled round of a jac-engine MSM (tiles of 64
+        at n >= 4096): its largest K4 and K6 launches."""
+        return msm_jac.num_windows(P.CURVES[curve].r.bit_length(), c) * (
+            n // 64)
+
+    # each form at the largest launch this script's jac paths give it: the
+    # wrapper's BW6-761 G1 MSMs (n = 2^16), bench.py's BLS12-377 G1 shape
+    # (n = 2^18) and the BLS12-377 G2 MSM of phase 4 (n = 2^16)
+    forms = {
+        "fq24": ("bw6-761", False, tiled_lanes("bw6-761", 1 << 16)),
+        "fq12": ("bls12-377", False, tiled_lanes("bls12-377", 1 << 18)),
+        "fq2": ("bls12-377", True, tiled_lanes("bls12-377", 1 << 16)),
+    }
+    for form, (curve, g2, big) in forms.items():
+        t0 = time.time()
+        crv = jc.JacCurve(curve, g2)
+        F = crv.F
+        g = hc.g2_curve(curve) if g2 else hc.g1_curve(curve)
+        gen = hc.generators(curve)[1 if g2 else 0]
+        D = 256
+        pts = [gen]
+        for _ in range(D - 1):
+            pts.append(g.add(pts[-1], gen))
+        xy, _ = ct.pack_affine(F, pts, dev)
+        negxy = torch.cat([xy[:, :1], F.neg(xy[:, 1:])], 1)
+        H = F.host
+        B = 3000
+        rng = random.Random(17)
+        ia = torch.tensor([rng.randrange(D) for _ in range(B)], device=dev)
+        ib = (ia + torch.tensor([rng.randrange(1, D) for _ in range(B)],
+                                device=dev)) % D  # ib != ia
+        fin = torch.zeros(B, dtype=torch.bool, device=dev)
+
+        def zs(seed):
+            r = random.Random(seed)
+            return F.pack_mont([H.rand(r) for _ in range(B)], dev)
+
+        def scaled(aff, z):
+            """(x z^2, y z^3, z): the point with Jacobian scale z."""
+            z2 = F.mul(z, z)
+            return torch.stack([F.mul(aff[:, 0], z2),
+                                F.mul(aff[:, 1], F.mul(z2, z)), z], 1)
+
+        def pick(choices, idx):
+            return torch.stack(choices)[idx, torch.arange(B, device=dev)]
+
+        z1, z2 = zs(1), zs(2)
+        pa, pa2, na = scaled(xy[ia], z1), scaled(xy[ia], z2), scaled(
+            negxy[ia], z2)
+        qb = scaled(xy[ib], z2)
+        zero = torch.zeros_like(pa)
+        garbage = crv.mask(scaled(xy[ib], zs(3)), fin)  # X, Y != 0, Z = 0
+        kind = torch.arange(B, device=dev) % 7
+        # O+O, O+P, P+O, P+P (one triple), P+P (other Z), P+(-P), P+Q
+        tab_l = torch.tensor([0, 1, 2, 2, 2, 2, 2], device=dev)
+        tab_r = torch.tensor([0, 3, 1, 2, 3, 4, 5], device=dev)
+        lhs = pick([zero, garbage, pa], tab_l[kind])
+        rhs = pick([zero, garbage, pa, pa2, na, qb], tab_r[kind])
+        got = jc.jac_add(F, lhs, rhs)
+        ref = ct.jac_add(F, lhs, rhs)
+        torch.cuda.synchronize()
+        err4 = int((got.long() - ref.long()).abs().max())
+        check(err4 == 0, f"K4 {form}: crafted sums differ from plain")
+        aff_l = crv.to_affine_host(lhs[:70])
+        aff_r = crv.to_affine_host(rhs[:70])
+        check(crv.to_affine_host(got[:70])
+              == [g.add(p, q) for p, q in zip(aff_l, aff_r)],
+              f"K4 {form}: sums differ from the host curve")
+        err5 = 0
+        for k in (1, 3, c):
+            got5 = jc.jac_dbl_chain(F, lhs, k)
+            ref5 = lhs
+            for _ in range(k):
+                ref5 = ct.jac_dbl(F, ref5)
+            torch.cuda.synchronize()
+            err5 = max(err5, int((got5.long() - ref5.long()).abs().max()))
+            check(err5 == 0, f"K5 {form} k={k}: differs from plain")
+        check(crv.to_affine_host(got5[:70])
+              == [None if p is None else g.mul(1 << c, p) for p in aff_l],
+              f"K5 {form}: 2^c P differs from the host curve")
+        # K6: O+P, P+O, O+O (nonzero x, y at infinity), P+P, P+(-P), P+Q
+        inf_l = (kind == 0) | (kind == 2)
+        inf_r = (kind == 1) | (kind == 2)
+        a6 = xy[ia].clone()
+        b6 = pick([xy[ib], xy[ia], negxy[ia]],
+                  torch.tensor([0, 0, 0, 1, 2, 0, 0], device=dev)[kind])
+        got6 = jc.aff_add(F, a6, inf_l, b6, inf_r)
+        ref6 = ct.aff_add(F, a6, inf_l, b6, inf_r)
+        torch.cuda.synchronize()
+        err6 = int((got6.long() - ref6.long()).abs().max())
+        check(err6 == 0, f"K6 {form}: crafted sums differ from plain")
+        h_l = crv.to_affine_host(crv.lift(a6[:70], inf_l[:70]))
+        h_r = crv.to_affine_host(crv.lift(b6[:70], inf_r[:70]))
+        check(crv.to_affine_host(got6[:70])
+              == [g.add(p, q) for p, q in zip(h_l, h_r)],
+              f"K6 {form}: sums differ from the host curve")
+        log(f"[2e] K4/K5/K6 {form} ({curve} {'G2' if g2 else 'G1'}): equal "
+            f"to plain on {B} crafted cases each (K5 k = 1, 3, {c}) "
+            f"({time.time() - t0:.1f}s)")
+
+        # timed at the largest launch of the paths, on finite distinct
+        # points: every lane takes the generic formulas
+        t0 = time.time()
+        gen_ = torch.Generator(device=dev).manual_seed(5)
+        ja = torch.randint(0, D, (big,), device=dev, generator=gen_)
+        jb = (ja + torch.randint(1, D, (big,), device=dev,
+                                 generator=gen_)) % D
+        zbig = F.mul(xy[ja][:, 0], xy[jb][:, 1])  # nonzero w.h.p.
+        z2b = F.mul(zbig, zbig)
+        p4 = torch.stack([F.mul(xy[ja][:, 0], z2b),
+                          F.mul(xy[ja][:, 1], F.mul(z2b, zbig)), zbig], 1)
+        finb = torch.zeros(big, dtype=torch.bool, device=dev)
+        q4 = crv.lift(xy[jb], finb)
+        out = {}
+        W = words(F)
+        for name, run, plain, ops, nbytes in (
+            ("jac_add", lambda: jc.jac_add(F, p4, q4),
+             lambda: ct.jac_add(F, p4, q4),
+             big * jac_muls(F, "add") * mul_ops(F), big * 9 * W * 4),
+            ("aff_add", lambda: jc.aff_add(F, xy[ja], finb, xy[jb], finb),
+             lambda: ct.aff_add(F, xy[ja], finb, xy[jb], finb),
+             big * jac_muls(F, "aff") * mul_ops(F),
+             big * (4 * W * 4 + 2 + 3 * W * 4)),
+        ):
+            got = run()
+            ms = cuda_ms(run, 3)
+            t_ref = time.time()
+            ref = plain()
+            torch.cuda.synchronize()
+            plain_ms = (time.time() - t_ref) * 1e3
+            e = int((got.long() - ref.long()).abs().max())
+            check(e == 0, f"{name} {form}: main-shape sums differ from plain")
+            bms, bby = bound(ops, nbytes)
+            out[name] = {"lanes": big, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bms, "bound_by": bby,
+                         "max_abs_err": max(e, err4 if name == "jac_add"
+                                            else err6)}
+            del got, ref
+        # the Horner fold's launch: one point, k = c
+        one = p4[:1].contiguous()
+        run = lambda: jc.jac_dbl_chain(F, one, c)  # noqa: E731
+        got = run()
+        ms = cuda_ms(run, 20)
+        t_ref = time.time()
+        ref = one
+        for _ in range(c):
+            ref = ct.jac_dbl(F, ref)
+        torch.cuda.synchronize()
+        plain_ms = (time.time() - t_ref) * 1e3
+        check(torch.equal(got, ref), f"K5 {form}: Horner launch != plain")
+        bms, bby = bound(c * jac_muls(F, "dbl") * mul_ops(F),
+                         2 * 3 * W * 4)
+        out["jac_dbl_chain"] = {"points": 1, "k": c, "ms": ms,
+                                "plain_ms": plain_ms, "bound_ms": bms,
+                                "bound_by": bby, "max_abs_err": err5}
+        stats[form] = out
+        log(f"[2e] K4/K5/K6 {form} timed: {json.dumps(out)} "
+            f"({time.time() - t0:.1f}s)")
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the wrapper proof
 # ---------------------------------------------------------------------------
+
+
+def keypair_fields(kp) -> tuple:
+    """Every point of a Groth16 keypair, for comparing two keypairs."""
+    return (tuple(getattr(kp.pk, k) for k in (
+        "alpha_g1", "beta_g1", "beta_g2", "delta_g1", "delta_g2", "a_query",
+        "b_g1_query", "b_g2_query", "l_query", "h_query")),
+        tuple(getattr(kp.vk, k) for k in ("alpha", "beta", "delta", "abc")))
 
 
 class DeviceProver:
@@ -458,6 +675,7 @@ def prove_phase() -> dict:
     host_n = Groth16("bls12-377")
     prover = Groth16Torch("bw6-761", engine="msm4")
     prover8 = Groth16Torch("bw6-761", engine="msm8")
+    prover_j = Groth16Torch("bw6-761", engine="jac")
     counts = {}
 
     # a small input against the host prover: same rng, same proof
@@ -470,11 +688,31 @@ def prove_phase() -> dict:
     log(f"[3a] BW6-761 dummy-app proof on the card equals the host "
         f"prover's ({time.time() - t0:.1f}s)")
 
-    # the nested application proof, made on the card (G2 over Fq2) from
-    # the rng state the host prover is given too
+    # the nested application's keypair, from the host setup and again from
+    # the device setup (K4 and K6 over Fq 12 and Fq2) from one rng state
     rng = random.Random(11)
     t0 = time.time()
+    state = rng.getstate()
     r1cs_n, nkp = da.dummy_app_setup("bls12-377", rng)
+    r = random.Random()
+    r.setstate(state)
+    reset_counts()
+    nkp_dev = Groth16Torch("bls12-377").generate_setup(r1cs_n, r)
+    torch.cuda.synchronize()
+    counts["nested setup"] = read_counts()
+    check(keypair_fields(nkp_dev) == keypair_fields(nkp),
+          "nested device setup != host setup from the same rng state")
+    for name in ("jac_add", "aff_add"):
+        by_form = counts["nested setup"][name]["by_form"]
+        check(by_form.get("fq12", 0) > 0 and by_form.get("fq2", 0) > 0,
+              f"{name} not launched in both forms by the nested setup")
+    log(f"[3b] nested BLS12-377 keypair from the device setup equals the "
+        f"host setup's; launches {json.dumps(counts['nested setup'])} "
+        f"({time.time() - t0:.1f}s)")
+
+    # the nested application proof, made on the card (G2 over Fq2) from
+    # the rng state the host prover is given too
+    t0 = time.time()
     asg_n = da.dummy_app_assignment("bls12-377", 7)
     rng_host = random.Random()
     rng_host.setstate(rng.getstate())
@@ -503,19 +741,42 @@ def prove_phase() -> dict:
         f"{r1cs.num_variables} variables, domain {r1cs.qap_degree} "
         f"({time.time() - t0:.1f}s)")
 
+    # the wrapper's trusted setup: native (cached under a hash of the rng
+    # state and the circuit's size), then on the card from the same state
     t0 = time.time()
-    kp_path = os.path.join(cache, f"keypair_b1_{r1cs.num_constraints}.pkl")
+    state = rng.getstate()
+    key = hashlib.sha256(repr(state).encode()).hexdigest()[:16]
+    kp_path = os.path.join(
+        cache, f"keypair_b1_{r1cs.num_constraints}_{key}.pkl")
     if os.path.exists(kp_path):
         with open(kp_path, "rb") as f:
             wkp = pickle.load(f)
         how = f"keypair loaded from {kp_path}"
     else:
-        wkp = setup_native.generate_setup("bw6-761", r1cs, rng)
+        r = random.Random()
+        r.setstate(state)
+        wkp = setup_native.generate_setup("bw6-761", r1cs, r)
         with open(kp_path + ".tmp", "wb") as f:
             pickle.dump(wkp, f)
         os.replace(kp_path + ".tmp", kp_path)
         how = "native setup"
     log(f"[3d] {how} ({time.time() - t0:.1f}s)")
+    t0 = time.time()
+    reset_counts()
+    timings = {}
+    wkp_dev = prover_j.generate_setup(r1cs, rng, timings=timings)
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    counts["setup"] = read_counts()
+    check(keypair_fields(wkp_dev) == keypair_fields(wkp),
+          "wrapper device setup != native setup from the same rng state")
+    for name in ("jac_add", "aff_add"):
+        check(counts["setup"][name]["launches"] > 0,
+              f"{name} never launched during the device setup")
+    setup_phases = {k: round(v, 3) for k, v in timings.items()}
+    log(f"[3d] wrapper device setup ({setup_s:.1f}s) equals the native "
+        f"setup's keypair; launches {json.dumps(counts['setup'])}; phases "
+        f"{json.dumps(setup_phases)}")
 
     t0 = time.time()
     dpk = prover.pack_pk(wkp.pk, r1cs.num_primary + 1)
@@ -526,10 +787,12 @@ def prove_phase() -> dict:
     vk_hash = circ.compute_nested_vk_hash(nkp.vk)
     state = rng.getstate()
     runs = {}
-    # msm4, then msm8 from the same rng state, then msm4 again: the first
-    # prove pays one-time host packing, so phases compare warm to warm
+    # msm4, then msm8 and jac from the same rng state, then msm4 again:
+    # the first prove pays one-time host packing, so phases compare warm to
+    # warm
     for tag, eng, run in (("[3f]", prover, "msm4"),
                           ("[3g]", prover8, "msm8"),
+                          ("[3g]", prover_j, "jac"),
                           ("[3g]", prover, "msm4 warm")):
         dev_prover = DeviceProver(eng, dpk)
         r = random.Random()
@@ -563,11 +826,15 @@ def prove_phase() -> dict:
     for name in ("proj_add", "proj_dbl_chain"):
         check(c8[name]["launches"] > 0,
               f"{name} never launched during the msm8 prove")
+    for name in ("jac_add", "jac_dbl_chain", "aff_add"):
+        check(counts["jac"][name]["launches"] > 0,
+              f"{name} never launched during the jac prove")
     wep = runs["msm4"]["wep"]
-    check(runs["msm8"]["wep"].proof == wep.proof
-          and runs["msm8"]["wep"].inputs == wep.inputs,
-          "msm8 wrapper proof != msm4 wrapper proof")
-    log("[3g] msm8 wrapper proof equals the msm4 one bit for bit")
+    for run in ("msm8", "jac"):
+        check(runs[run]["wep"].proof == wep.proof
+              and runs[run]["wep"].inputs == wep.inputs,
+              f"{run} wrapper proof != msm4 wrapper proof")
+    log("[3g] msm8 and jac wrapper proofs equal the msm4 one bit for bit")
     rng.setstate(state)
 
     t0 = time.time()
@@ -589,13 +856,13 @@ def prove_phase() -> dict:
     check(not host_w.verify(wep.inputs, tampered, wkp.vk),
           "tampered wrapper proof accepted")
     log(f"[3i] tampered wrapper proof rejected ({time.time() - t0:.1f}s)")
-    return {"counts": counts,
+    return {"counts": counts, "setup_s": setup_s,
             "runs": {k: {"prove_s": v["prove_s"], "phases": v["phases"]}
                      for k, v in runs.items()}}
 
 
 # ---------------------------------------------------------------------------
-# phase 4: bench.py's MSM shape on both engines
+# phase 4: bench.py's MSM shape on the three engines
 # ---------------------------------------------------------------------------
 
 
@@ -604,7 +871,7 @@ def bench_phase() -> dict:
 
     from zecale_tpu_torch.ec import curve_torch as ct
     from zecale_tpu_torch.ec import host_curve as hc
-    from zecale_tpu_torch.ec import msm, msm8
+    from zecale_tpu_torch.ec import msm, msm8, msm_jac
     from zecale_tpu_torch.ff import params as P
     from zecale_tpu_torch.ff.fp_torch import field
 
@@ -633,7 +900,8 @@ def bench_phase() -> dict:
         inf = torch.zeros(n, dtype=torch.bool, device=dev)
         scal = field(r).pack(scalars, dev)
         res = {}
-        for engine, fn in (("msm4", msm.msm), ("msm8", msm8.msm8)):
+        for engine, fn in (("msm4", msm.msm), ("msm8", msm8.msm8),
+                           ("jac", msm_jac.msm)):
             fn(curve, g2, scal, xy, inf)  # warm-up
             torch.cuda.synchronize()
             t1 = time.time()
@@ -643,7 +911,7 @@ def bench_phase() -> dict:
             check(got == want, f"{name} {engine}: MSM != folded host MSM")
             res[engine] = {"s": dt, "mpoints_per_s": n / dt / 1e6}
         out[name] = res
-        log(f"[4] {name}: both engines equal the folded host MSM; "
+        log(f"[4] {name}: all three engines equal the folded host MSM; "
             f"{json.dumps(res)} ({time.time() - t0:.1f}s)")
     return out
 
@@ -677,6 +945,10 @@ def main() -> int:
     pstats = {}
     proj_phase(pstats)
     log(f"[2] K2 / K3 checks done ({time.time() - t0:.1f}s)")
+    t0 = time.time()
+    jstats = {}
+    jac_phase(jstats)
+    log(f"[2] K4 / K5 / K6 checks done ({time.time() - t0:.1f}s)")
 
     main_path = prove_phase()
     t0 = time.time()
@@ -706,6 +978,12 @@ def main() -> int:
               "zecale_tpu/ec/ec_pallas.py:596", k3,
               max(p["proj_dbl_chain"]["max_abs_err"]
                   for p in pstats.values())),
+    ] + [
+        entry(name, "jac_kernels.cu", f"zecale_tpu/ec/ec_pallas.py:{line}",
+              jstats["fq24"][name],
+              max(j[name]["max_abs_err"] for j in jstats.values()))
+        for name, line in (("jac_add", 473), ("jac_dbl_chain", 514),
+                           ("aff_add", 543))
     ]}
     for k in kernels["kernels"]:
         check(k["launches"] > 0, f"{k['name']} never launched on the paths")

@@ -1,7 +1,8 @@
 """The port's device prover (zecale_tpu_torch/snark/groth16_torch.py) on
 the CPU against the reference's host Groth16 prover and verifier, on both
-curves (BW6-761, and BLS12-377 with G2 over Fq2) and with both MSM engines,
-and the carry-over of the reference's packed proving key.  Tolerance: exact
+curves (BW6-761, and BLS12-377 with G2 over Fq2) and with all three MSM
+engines (msm4, msm8, and jac: the reference's use_msm8=False branch), and
+the carry-over of the reference's packed proving key.  Tolerance: exact
 (the same random.Random state must give the same A, B, C)."""
 
 import random
@@ -105,6 +106,27 @@ def test_msm8_engine_equals_msm4_engine(dummy_bw6, monkeypatch):
     assert Groth16Torch(CURVE, device="cpu").engine == "msm8"
     with pytest.raises(ValueError):
         Groth16Torch(CURVE, device="cpu", engine="msm5")
+
+
+@pytest.mark.parametrize("curve", ["bw6-761", "bls12-377"])
+def test_jac_engine_equals_host_prover_and_msm4_engine(curve):
+    """The Jacobian engine (ec/msm_jac.py): the same rng state gives the
+    host prover's proof and the msm4 engine's, bit for bit."""
+    r1cs, kp = ref_da.dummy_app_setup(curve, random.Random(8))
+    asg = ref_da.dummy_app_assignment(curve, 9)
+    host = RefGroth16(curve)
+    want = host.prove(r1cs, kp.pk, asg, random.Random(79))
+    proofs = {}
+    for engine in ("msm4", "jac"):
+        timings = {}
+        prover = Groth16Torch(curve, device="cpu", engine=engine)
+        proofs[engine] = prover.prove(r1cs, kp.pk, asg, random.Random(79),
+                                      timings=timings)
+        assert set(timings) == {"witness", "fft", "digitize", "msm",
+                                "assembly"}
+    for got in proofs.values():
+        assert (got.a, got.b, got.c) == (want.a, want.b, want.c)
+    assert host.verify([9], proofs["jac"], kp.vk)
 
 
 def test_from_reference_pk8_equals_pack_pk_bls12_377():

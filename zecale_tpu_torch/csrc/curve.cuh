@@ -1,12 +1,17 @@
-// Complete projective group law for short Weierstrass curves with a = 0
-// (Renes-Costello-Batina 2016, algorithms 7, 8 and 9), written once over a
-// field type Fld -- Fq<12>, Fq<24> (field.cuh) or Fq2 (field2.cuh) -- so
-// the bucket reduce (K1) and the msm8 kernels (K2 proj_add, K3
-// proj_dbl_chain) share one body.  The plain PyTorch twins are
-// ec/curve_torch.py (proj_add, proj_add_mixed, proj_dbl) and ec/msm.py
-// (bucket_reduce_ref).  b3 = 3b is Fld::B3: a small signed integer over Fq
-// (3 BLS12-377 G1, -3 BW6-761 G1, 12 BW6-761 G2) or the Fq2 constant
-// (0, -3/5) of the BLS12-377 G2 twist.
+// Group laws for short Weierstrass curves with a = 0, written once over a
+// field type Fld -- Fq<12>, Fq<24> (field.cuh) or Fq2 (field2.cuh):
+//
+//   * the complete projective law (Renes-Costello-Batina 2016, algorithms
+//     7, 8 and 9), shared by the bucket reduce (K1) and the msm8 kernels
+//     (K2 proj_add, K3 proj_dbl_chain).  Plain PyTorch twins:
+//     ec/curve_torch.py (proj_add, proj_add_mixed, proj_dbl) and ec/msm.py
+//     (bucket_reduce_ref).  b3 = 3b is Fld::B3: a small signed integer over
+//     Fq (3 BLS12-377 G1, -3 BW6-761 G1, 12 BW6-761 G2) or the Fq2 constant
+//     (0, -3/5) of the BLS12-377 G2 twist;
+//   * the unified Jacobian law of the JAX package's JacCurve, shared by
+//     K4 jac_add, K5 jac_dbl_chain and K6 aff_add (jac_kernels.cu).  Plain
+//     PyTorch twins: ec/curve_torch.py (jac_add, jac_dbl, aff_add).  It
+//     needs no curve constant.
 #pragma once
 #include "field.cuh"
 #include "field2.cuh"
@@ -153,6 +158,152 @@ ZT_HD void proj_dbl(Proj<Fld>& r, const Proj<Fld>& p,
   Fld::copy(r.x, x3);
   Fld::copy(r.y, y3);
   Fld::copy(r.z, z3);
+}
+
+// ---------------------------------------------------------------------------
+// The unified Jacobian law (x = X/Z^2, y = Y/Z^3; Z = 0 is infinity) of
+// ec/curve_jax.py:JacCurve and the Pallas bodies ec/ec_pallas.py
+// _jac_add_t (168), _jac_dbl_t (229) and _aff_aff_add_t (247).  Its
+// formulas are not complete.  The TPU bodies computed every branch and
+// selected; a thread here branches on the same tests, and the outputs are
+// the reference's field values in every case, the coordinates it carries
+// through points at infinity included: O + Q is Q's triple as it stands,
+// P + O is P's, and P + (-P) keeps the generic X3, Y3 with Z3 = 0.  The
+// tests on H and R are exact because every field op here returns canonical
+// values in [0, p).
+
+// A Jacobian point is the same three rows of W words as a projective one.
+template <class Fld>
+using Jac = Proj<Fld>;
+
+// r = 2p, dbl-2009-l: 2M + 5S.  Z = 0 stays Z3 = 0.  r may alias p.
+template <class Fld>
+ZT_HD void jac_dbl(Jac<Fld>& r, const Jac<Fld>& p,
+                   const typename Fld::Params& F) {
+  constexpr int W = Fld::W;
+  uint32_t a[W], b[W], c[W], d[W], e[W], t[W];
+  Fld::mul(a, p.x, p.x, F);  // A = X^2
+  Fld::mul(b, p.y, p.y, F);  // B = Y^2
+  Fld::add(d, p.x, b, F);
+  Fld::mul(t, p.y, p.z, F);
+  Fld::add(r.z, t, t, F);    // Z3 = 2 Y Z; p is not read after this
+  Fld::mul(c, b, b, F);      // C = B^2
+  Fld::mul(d, d, d, F);
+  Fld::sub(d, d, a, F);
+  Fld::sub(d, d, c, F);
+  Fld::add(d, d, d, F);      // D = 2((X + B)^2 - A - C)
+  Fld::add(e, a, a, F);
+  Fld::add(e, e, a, F);      // E = 3A
+  Fld::mul(t, e, e, F);
+  Fld::sub(t, t, d, F);
+  Fld::sub(r.x, t, d, F);    // X3 = E^2 - 2D
+  Fld::sub(d, d, r.x, F);
+  Fld::mul(d, e, d, F);
+  Fld::add(c, c, c, F);
+  Fld::add(c, c, c, F);
+  Fld::add(c, c, c, F);
+  Fld::sub(r.y, d, c, F);    // Y3 = E(D - X3) - 8C
+}
+
+// r = p + q, add-2007-bl (11M + 5S), with dbl-2009-l where P = Q.  r may
+// alias p or q.
+template <class Fld>
+ZT_HD void jac_add(Jac<Fld>& r, const Jac<Fld>& p, const Jac<Fld>& q,
+                   const typename Fld::Params& F) {
+  constexpr int W = Fld::W;
+  if (Fld::is_zero(p.z)) {
+    if (&r != &q) r = q;
+    return;
+  }
+  if (Fld::is_zero(q.z)) {
+    if (&r != &p) r = p;
+    return;
+  }
+  uint32_t z1z1[W], z2z2[W], u1[W], h[W], s1[W], rr[W], t[W];
+  Fld::mul(z1z1, p.z, p.z, F);
+  Fld::mul(z2z2, q.z, q.z, F);
+  Fld::mul(u1, p.x, z2z2, F);   // U1
+  Fld::mul(h, q.x, z1z1, F);    // U2
+  Fld::mul(t, q.z, z2z2, F);
+  Fld::mul(s1, p.y, t, F);      // S1
+  Fld::mul(t, p.z, z1z1, F);
+  Fld::mul(rr, q.y, t, F);      // S2
+  Fld::sub(h, h, u1, F);        // H = U2 - U1
+  Fld::sub(rr, rr, s1, F);      // R = S2 - S1
+  if (Fld::is_zero(h) && Fld::is_zero(rr)) {
+    jac_dbl<Fld>(r, p, F);
+    return;
+  }
+  Fld::add(t, p.z, q.z, F);     // p and q are not read after this
+  Fld::mul(t, t, t, F);
+  Fld::sub(t, t, z1z1, F);
+  Fld::sub(t, t, z2z2, F);
+  Fld::mul(z2z2, t, h, F);      // Z3 = ((Z1 + Z2)^2 - Z1Z1 - Z2Z2) H
+  Fld::add(t, h, h, F);
+  Fld::mul(t, t, t, F);         // I = (2H)^2
+  Fld::mul(z1z1, h, t, F);      // J = H I
+  Fld::mul(u1, u1, t, F);       // V = U1 I
+  Fld::add(rr, rr, rr, F);      // r = 2R
+  Fld::mul(t, rr, rr, F);
+  Fld::sub(t, t, z1z1, F);
+  Fld::sub(t, t, u1, F);
+  Fld::sub(t, t, u1, F);        // X3 = r^2 - J - 2V
+  Fld::sub(u1, u1, t, F);
+  Fld::mul(u1, rr, u1, F);
+  Fld::mul(s1, s1, z1z1, F);
+  Fld::add(s1, s1, s1, F);
+  Fld::sub(r.y, u1, s1, F);     // Y3 = r(V - X3) - 2 S1 J
+  Fld::copy(r.x, t);
+  Fld::copy(r.z, z2z2);
+}
+
+// r = (x1, y1) + (x2, y2) with infinity flags, a Jacobian result:
+// mmadd-2007-bl (4M + 2S), and where P = Q the doubling of (x1, y1, 1),
+// which is mdbl-2007-bl's values.  A point at infinity lifts to Z = 0,
+// any other to Z = 1.
+template <class Fld>
+ZT_HD void aff_add(Jac<Fld>& r, const uint32_t* x1, const uint32_t* y1,
+                   bool inf1, const uint32_t* x2, const uint32_t* y2,
+                   bool inf2, const typename Fld::Params& F) {
+  constexpr int W = Fld::W;
+  if (inf1 || inf2) {
+    const bool take2 = inf1;
+    Fld::copy(r.x, take2 ? x2 : x1);
+    Fld::copy(r.y, take2 ? y2 : y1);
+    if (take2 && inf2)
+      Fld::zero(r.z);
+    else
+      Fld::one(r.z, F);
+    return;
+  }
+  uint32_t h[W], ry[W], i4[W], j[W], v[W], t[W];
+  Fld::sub(h, x2, x1, F);
+  Fld::sub(ry, y2, y1, F);
+  if (Fld::is_zero(h) && Fld::is_zero(ry)) {
+    Jac<Fld> p;
+    Fld::copy(p.x, x1);
+    Fld::copy(p.y, y1);
+    Fld::one(p.z, F);
+    jac_dbl<Fld>(r, p, F);
+    return;
+  }
+  Fld::mul(t, h, h, F);
+  Fld::add(t, t, t, F);
+  Fld::add(i4, t, t, F);        // I = 4 H^2
+  Fld::mul(j, h, i4, F);        // J = H I
+  Fld::mul(v, x1, i4, F);       // V = X1 I
+  Fld::add(ry, ry, ry, F);      // r = 2 (Y2 - Y1)
+  Fld::mul(t, ry, ry, F);
+  Fld::sub(t, t, j, F);
+  Fld::sub(t, t, v, F);
+  Fld::sub(t, t, v, F);         // X3 = r^2 - J - 2V
+  Fld::sub(v, v, t, F);
+  Fld::mul(v, ry, v, F);
+  Fld::mul(j, y1, j, F);
+  Fld::add(j, j, j, F);
+  Fld::sub(r.y, v, j, F);       // Y3 = r(V - X3) - 2 Y1 J
+  Fld::copy(r.x, t);
+  Fld::add(r.z, h, h, F);       // Z3 = 2H (0 where P = -Q)
 }
 
 // Sum of the points named by ent[lo..hi), starting from (0:1:0), into

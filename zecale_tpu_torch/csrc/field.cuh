@@ -172,6 +172,7 @@ struct Fq {
     for (int i = 0; i < N; ++i) r[i] = 0;
   }
   ZT_HD static void one(uint32_t* r, const Params& F) { fp_copy<N>(r, F.one); }
+  ZT_HD static bool is_zero(const uint32_t* a) { return fp_is_zero<N>(a); }
   ZT_HD static void add(uint32_t* r, const uint32_t* a, const uint32_t* b,
                         const Params& F) {
     fp_add<N>(r, a, b, F);

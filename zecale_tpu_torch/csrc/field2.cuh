@@ -33,6 +33,7 @@ struct Fq2 {
 #pragma unroll
     for (int i = NB; i < W; ++i) r[i] = 0;
   }
+  ZT_HD static bool is_zero(const uint32_t* a) { return fp_is_zero<W>(a); }
   ZT_HD static void add(uint32_t* r, const uint32_t* a, const uint32_t* b,
                         const Params& F) {
     fp_add<NB>(r, a, b, F);

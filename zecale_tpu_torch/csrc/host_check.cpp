@@ -50,6 +50,32 @@ void proj_batch(const uint32_t* p, const uint32_t* q, uint32_t* out, long n,
   }
 }
 
+// op 0: out = p + q (K4); op 1: out = 2^k p (K5); op 2: out = a + b for
+// affine rows a, b with byte infinity flags ainf, binf (K6)
+template <class Fld>
+void jac_batch(int op, const uint32_t* a, const uint8_t* ainf,
+               const uint32_t* b, const uint8_t* binf, uint32_t* out, long n,
+               int k, const typename Fld::Params& F) {
+  constexpr int W = Fld::W;
+  for (long i = 0; i < n; ++i) {
+    Jac<Fld> p, q;
+    if (op == 2) {
+      const size_t row = (size_t)i * 2 * W;
+      aff_add<Fld>(p, a + row, a + row + W, ainf[i] != 0, b + row,
+                   b + row + W, binf[i] != 0, F);
+    } else {
+      proj_load<Fld>(p, a + (size_t)i * 3 * W);
+      if (op == 0) {
+        proj_load<Fld>(q, b + (size_t)i * 3 * W);
+        jac_add<Fld>(p, p, q, F);
+      } else {
+        for (int j = 0; j < k; ++j) jac_dbl<Fld>(p, p, F);
+      }
+    }
+    proj_store<Fld>(out + (size_t)i * 3 * W, p);
+  }
+}
+
 template <class Fld>
 struct Args {
   typename Fld::Params F;
@@ -102,5 +128,17 @@ extern "C" int zt_cpu_proj(int form, const uint32_t* pp, const uint32_t* q,
     using Fld = std::remove_pointer_t<decltype(tag)>;
     Args<Fld> A(p, one, pinv, b3);
     proj_batch<Fld>(pp, q, out, n, k, A.b3, A.F);
+  });
+}
+
+extern "C" int zt_cpu_jac(int form, int op, const uint32_t* a,
+                          const uint8_t* ainf, const uint32_t* b,
+                          const uint8_t* binf, uint32_t* out, long n, int k,
+                          const uint32_t* p, const uint32_t* one,
+                          unsigned pinv) {
+  return dispatch(form, [&](auto* tag) {
+    using Fld = std::remove_pointer_t<decltype(tag)>;
+    Args<Fld> A(p, one, pinv, nullptr);
+    jac_batch<Fld>(op, a, ainf, b, binf, out, n, k, A.F);
   });
 }

@@ -1,0 +1,138 @@
+// The Jacobian engine's group-law kernels (ec/jac_curve.py, ec/msm_jac.py):
+//
+//   K4 zt_jac_add:       out[i] = p[i] + q[i], the unified Jacobian add
+//                        (curve.cuh jac_add), canonical outputs;
+//   K5 zt_jac_dbl_chain: out[i] = 2^k p[i], k doublings (curve.cuh
+//                        jac_dbl) inside the thread, one launch per chain;
+//   K6 zt_aff_add:       out[i] = a[i] + b[i] for affine (x, y) rows with
+//                        one infinity flag (a byte) per point, a Jacobian
+//                        result (curve.cuh aff_add).
+//
+// Replace zecale_tpu/ec/ec_pallas.py:_KernelFamily.jac_add (473-493),
+// jac_dbl (495) / jac_dbl_chain (514-541) and aff_add (543-569).  The TPU
+// kernels transposed a block of bt points into (ew, bt) limb planes so that
+// the VPU's lanes ran across points, and computed the generic sum, the
+// doubling and the infinity cases for every lane before selecting.  Here
+// one thread owns one point: it reads its rows (x | y | z, the layout of
+// the torch tensors), branches to the one case its point is in, and writes
+// the row back.  A dbl chain is a loop inside the thread, so the point
+// never leaves registers between doublings.
+//
+// Bound: operations.  An add is 16 Montgomery products (11M + 5S; 7 where
+// it doubles), a doubling 7, a K6 add 6; over Fq2 each product is three
+// base products.  Each product is 2 NB^2 32x32->64-bit multiply-adds
+// against 3 W words of traffic per operand, far below the card's memory
+// rate.  A 24-limb add holds two points and seven temporaries, more than
+// the 255 registers a thread may have, so __launch_bounds__(128) lets 128
+// such threads share the SM's 65,536 and the rest spills to local memory.
+// A chain on one point (the MSM's Horner fold) is one thread's dependent
+// products: latency-bound, not bound by either.
+//
+// One source, built once per field form (-DZT_LIMBS=12 BLS12-377 Fq,
+// -DZT_LIMBS=24 BW6-761 Fq, -DZT_FQ2=1 BLS12-377 Fq2: three nvcc
+// processes), each exporting the three launchers with a plain C interface
+// that returns the CUDA error code of the launch (0 on success).
+#include <cuda_runtime.h>
+
+#include "curve.cuh"
+
+#if !(defined(ZT_LIMBS) || defined(ZT_FQ2))
+#error "build with -DZT_LIMBS=12|24 or -DZT_FQ2=1"
+#endif
+
+namespace {
+
+constexpr int kThreads = 128;
+
+template <class Fld>
+__global__ void __launch_bounds__(kThreads)
+    jac_add_kernel(const uint32_t* __restrict__ p,
+                   const uint32_t* __restrict__ q, uint32_t* __restrict__ out,
+                   int n, typename Fld::Params F) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const size_t row = (size_t)i * 3 * Fld::W;
+  Jac<Fld> a, b;
+  proj_load<Fld>(a, p + row);
+  proj_load<Fld>(b, q + row);
+  jac_add<Fld>(a, a, b, F);
+  proj_store<Fld>(out + row, a);
+}
+
+template <class Fld>
+__global__ void __launch_bounds__(kThreads)
+    jac_dbl_chain_kernel(const uint32_t* __restrict__ p,
+                         uint32_t* __restrict__ out, int n, int k,
+                         typename Fld::Params F) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const size_t row = (size_t)i * 3 * Fld::W;
+  Jac<Fld> a;
+  proj_load<Fld>(a, p + row);
+#pragma unroll 1
+  for (int j = 0; j < k; ++j) jac_dbl<Fld>(a, a, F);
+  proj_store<Fld>(out + row, a);
+}
+
+template <class Fld>
+__global__ void __launch_bounds__(kThreads)
+    aff_add_kernel(const uint32_t* __restrict__ a,
+                   const uint8_t* __restrict__ ainf,
+                   const uint32_t* __restrict__ b,
+                   const uint8_t* __restrict__ binf,
+                   uint32_t* __restrict__ out, int n,
+                   typename Fld::Params F) {
+  constexpr int W = Fld::W;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const size_t row = (size_t)i * 2 * W;
+  uint32_t x1[W], y1[W], x2[W], y2[W];
+  Fld::copy(x1, a + row);
+  Fld::copy(y1, a + row + W);
+  Fld::copy(x2, b + row);
+  Fld::copy(y2, b + row + W);
+  Jac<Fld> r;
+  aff_add<Fld>(r, x1, y1, ainf[i] != 0, x2, y2, binf[i] != 0, F);
+  proj_store<Fld>(out + (size_t)i * 3 * W, r);
+}
+
+int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
+
+}  // namespace
+
+extern "C" int zt_jac_add(const void* p, const void* q, void* out, int n,
+                          const void* prime, const void* one, unsigned pinv,
+                          void* stream) {
+  if (n <= 0) return 0;
+  jac_add_kernel<ZtField>
+      <<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const uint32_t*>(p), static_cast<const uint32_t*>(q),
+          static_cast<uint32_t*>(out), n,
+          field_params<ZtField>(prime, one, pinv));
+  return (int)cudaGetLastError();
+}
+
+extern "C" int zt_jac_dbl_chain(const void* p, void* out, int n, int k,
+                                const void* prime, const void* one,
+                                unsigned pinv, void* stream) {
+  if (n <= 0) return 0;
+  jac_dbl_chain_kernel<ZtField>
+      <<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const uint32_t*>(p), static_cast<uint32_t*>(out), n, k,
+          field_params<ZtField>(prime, one, pinv));
+  return (int)cudaGetLastError();
+}
+
+extern "C" int zt_aff_add(const void* a, const void* ainf, const void* b,
+                          const void* binf, void* out, int n,
+                          const void* prime, const void* one, unsigned pinv,
+                          void* stream) {
+  if (n <= 0) return 0;
+  aff_add_kernel<ZtField>
+      <<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const uint32_t*>(a), static_cast<const uint8_t*>(ainf),
+          static_cast<const uint32_t*>(b), static_cast<const uint8_t*>(binf),
+          static_cast<uint32_t*>(out), n,
+          field_params<ZtField>(prime, one, pinv));
+  return (int)cudaGetLastError();
+}

@@ -16,6 +16,12 @@ over Fq -- 3 (BLS12-377 G1), -3 (BW6-761 G1), 12 (BW6-761 G2) -- applied as
 ``F.mul_small``, never a negative limb multiply (the trap
 ``fp8q.py:496-501`` records); over Fq2 it is the twist constant (c0, c1) =
 (0, -3/5), a full Fq2 product.
+
+It also holds the plain versions of the unified Jacobian law
+(``ec/curve_jax.py:JacCurve`` 188; ``jac_add``, ``jac_dbl``, ``aff_add``),
+the twins of ``jac_add``, ``jac_dbl`` and ``aff_add`` in
+``csrc/curve.cuh``: Jacobian points are (..., 3, *F.shape) too, with
+x = X/Z^2, y = Y/Z^3 and Z = 0 at infinity, whatever X and Y hold there.
 """
 
 from __future__ import annotations
@@ -157,6 +163,120 @@ def proj_dbl(F, p: torch.Tensor, b3):
     return torch.stack((x3, y3, z3), dim=-1 - len(F.shape))
 
 
+def is_zero(F, t: torch.Tensor) -> torch.Tensor:
+    """(..., *F.shape) -> (...,) bool: the element is 0."""
+    return (t == 0).flatten(-len(F.shape)).all(-1)
+
+
+def jac_from_affine(F, xy: torch.Tensor, inf: torch.Tensor) -> torch.Tensor:
+    """(..., 2, *F.shape) affine + (...,) infinity mask -> Jacobian
+    (x, y, 1), or (x, y, 0) where ``inf``: the lift of ``JacCurve``'s mixed
+    adds, which keep x and y of a point at infinity as they are."""
+    one = F.consts(xy.device)["one"].expand(*inf.shape, *F.shape)
+    z = torch.where(inf.view(*inf.shape, *[1] * len(F.shape)), 0, one)
+    return torch.cat([xy, z.unsqueeze(-1 - len(F.shape))],
+                     dim=-1 - len(F.shape))
+
+
+def jac_dbl(F, p: torch.Tensor) -> torch.Tensor:
+    """2P, dbl-2009-l (a = 0); Z = 0 stays Z = 0."""
+    x, y, z = _xyz(F, p)
+    a = F.mul(x, x)
+    b = F.mul(y, y)
+    c = F.mul(b, b)
+    xb = F.add(x, b)
+    d = F.dbl(F.sub(F.sub(F.mul(xb, xb), a), c))
+    e = F.add(F.dbl(a), a)
+    x3 = F.sub(F.mul(e, e), F.dbl(d))
+    y3 = F.sub(F.mul(e, F.sub(d, x3)), F.dbl(F.dbl(F.dbl(c))))
+    z3 = F.dbl(F.mul(y, z))
+    return torch.stack((x3, y3, z3), dim=-1 - len(F.shape))
+
+
+def _bc(F, mask: torch.Tensor) -> torch.Tensor:
+    """(...,) bool -> broadcastable against (..., k, *F.shape)."""
+    return mask.view(*mask.shape, *[1] * (1 + len(F.shape)))
+
+
+def _on_rows(F, out, rows, fn, *args):
+    """``out`` with the rows where ``rows`` holds replaced by fn(*args) of
+    those rows: the plain versions compute a case's formulas only where it
+    applies, as a kernel thread branches."""
+    idx = rows.reshape(-1).nonzero().squeeze(1)
+    if idx.numel():
+        flat = out.reshape(-1, *out.shape[rows.dim():]).clone()
+        flat[idx] = fn(F, *(a.reshape(-1, *a.shape[rows.dim():])[idx]
+                            for a in args))
+        out = flat.reshape(out.shape)
+    return out
+
+
+def _jac_add_finite(F, p, q):
+    """add-2007-bl, or dbl-2009-l where P = Q, for finite P and Q; Z3 = 0
+    where P = -Q, X3 and Y3 as the generic formulas leave them."""
+    x1, y1, z1 = _xyz(F, p)
+    x2, y2, z2 = _xyz(F, q)
+    z1z1 = F.mul(z1, z1)
+    z2z2 = F.mul(z2, z2)
+    u1 = F.mul(x1, z2z2)
+    u2 = F.mul(x2, z1z1)
+    s1 = F.mul(y1, F.mul(z2, z2z2))
+    s2 = F.mul(y2, F.mul(z1, z1z1))
+    h = F.sub(u2, u1)
+    r = F.sub(s2, s1)
+    h2 = F.dbl(h)
+    i = F.mul(h2, h2)
+    j = F.mul(h, i)
+    r2 = F.dbl(r)
+    v = F.mul(u1, i)
+    x3 = F.sub(F.sub(F.mul(r2, r2), j), F.dbl(v))
+    y3 = F.sub(F.mul(r2, F.sub(v, x3)), F.dbl(F.mul(s1, j)))
+    zs = F.add(z1, z2)
+    z3 = F.mul(F.sub(F.sub(F.mul(zs, zs), z1z1), z2z2), h)
+    out = torch.stack((x3, y3, z3), dim=-1 - len(F.shape))
+    return _on_rows(F, out, is_zero(F, h) & is_zero(F, r), jac_dbl, p)
+
+
+def jac_add(F, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Unified P + Q (``JacCurve.add``): add-2007-bl, dbl-2009-l where
+    P = Q, Z3 = 0 where P = -Q (X3, Y3 as the generic formulas leave them),
+    Q's triple where P is at infinity and P's where Q is."""
+    p_inf = is_zero(F, p.select(-1 - len(F.shape), 2))
+    q_inf = is_zero(F, q.select(-1 - len(F.shape), 2))
+    out = torch.where(_bc(F, p_inf), q, p)
+    return _on_rows(F, out, ~p_inf & ~q_inf, _jac_add_finite, p, q)
+
+
+def _aff_add_finite(F, a, b):
+    """mmadd-2007-bl, or the doubling of (x1, y1, 1) where P = Q (which
+    is mdbl-2007-bl's values); Z3 = 2H = 0 where P = -Q."""
+    x1, y1 = _xyz(F, a)
+    x2, y2 = _xyz(F, b)
+    h = F.sub(x2, x1)
+    ry = F.sub(y2, y1)
+    i = F.dbl(F.dbl(F.mul(h, h)))
+    j = F.mul(h, i)
+    r = F.dbl(ry)
+    v = F.mul(x1, i)
+    x3 = F.sub(F.sub(F.mul(r, r), j), F.dbl(v))
+    y3 = F.sub(F.mul(r, F.sub(v, x3)), F.dbl(F.mul(y1, j)))
+    out = torch.stack((x3, y3, F.dbl(h)), dim=-1 - len(F.shape))
+    finite = torch.zeros(out.shape[:-1 - len(F.shape)], dtype=torch.bool,
+                         device=a.device)
+    return _on_rows(F, out, is_zero(F, h) & is_zero(F, ry), jac_dbl,
+                    jac_from_affine(F, a, finite))
+
+
+def aff_add(F, a: torch.Tensor, a_inf: torch.Tensor, b: torch.Tensor,
+            b_inf: torch.Tensor) -> torch.Tensor:
+    """Affine + affine -> Jacobian (``JacCurve.add_affine_affine``): the
+    lifted other operand where one is at infinity (x and y kept as they
+    are), else ``_aff_add_finite``."""
+    out = torch.where(_bc(F, a_inf), jac_from_affine(F, b, b_inf),
+                      jac_from_affine(F, a, a_inf))
+    return _on_rows(F, out, ~a_inf & ~b_inf, _aff_add_finite, a, b)
+
+
 def to_affine_host(F, pts: torch.Tensor) -> list:
     """(k, 3, *F.shape) projective tensor -> host affine points (ints, or
     (c0, c1) tuples over Fq2; None for the identity), through one batched
@@ -167,6 +287,22 @@ def to_affine_host(F, pts: torch.Tensor) -> list:
     out = []
     for x, y, z, zi in zip(xs, ys, zs, hf.batch_inverse(H, zs)):
         out.append(None if H.is_zero(z) else (H.mul(x, zi), H.mul(y, zi)))
+    return out
+
+
+def jac_to_affine_host(F, pts: torch.Tensor) -> list:
+    """(k, 3, *F.shape) Jacobian tensor -> host affine points (None where
+    Z = 0), with one batched host inversion of the Z coordinates
+    (``msm_tpu._jac_to_affine_batch``)."""
+    H = F.host
+    xs, ys, zs = (F.unpack_mont(c) for c in _xyz(F, pts))
+    out = []
+    for x, y, z, zi in zip(xs, ys, zs, hf.batch_inverse(H, zs)):
+        if H.is_zero(z):
+            out.append(None)
+            continue
+        zi2 = H.sqr(zi)
+        out.append((H.mul(x, zi2), H.mul(y, H.mul(zi2, zi))))
     return out
 
 

@@ -30,24 +30,31 @@ import torch
 from . import curve_torch as ct
 
 
-def _check(name: str, F, *ts) -> None:
+def check_points(name: str, F, *ts, width: int = 3) -> None:
+    """Raise unless every tensor is a contiguous int32 batch of points of
+    ``width`` coordinates over F, all on one device."""
     for t in ts:
         if (t.device != ts[0].device or t.dtype != torch.int32
                 or not t.is_contiguous()
-                or tuple(t.shape[-1 - len(F.shape):]) != (3, *F.shape)):
+                or tuple(t.shape[-1 - len(F.shape):]) != (width, *F.shape)):
             raise ValueError(
-                f"{name}: points must be contiguous int32 (..., 3, "
+                f"{name}: points must be contiguous int32 (..., {width}, "
                 f"{', '.join(map(str, F.shape))}) on one device, got "
                 f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _launch(name: str, sym: str, F, b3, out, *args) -> None:
+def launch(name: str, sym: str, F, out, *args, b3=None) -> None:
+    """Launch the kernel ``sym`` in F's form on the current stream: its
+    ``args``, then the field constants, and b3 where the kernel takes one.
+    Raise on a CUDA error."""
     from ..utils.build import cuda_kernels
 
-    p, one, pinv, b3_buf = ct.kernel_consts(F, b3)
+    p, one, pinv, b3_buf = ct.kernel_consts(F, 0 if b3 is None else b3)
+    consts = [p.ctypes.data, one.ctypes.data, pinv]
+    if b3 is not None:
+        consts.append(b3_buf.ctypes.data)
     fn = cuda_kernels()[(sym, (ct.form_of(F),))]
-    rc = fn(*args, p.ctypes.data, one.ctypes.data, pinv, b3_buf.ctypes.data,
-            torch.cuda.current_stream(out.device).cuda_stream)
+    rc = fn(*args, *consts, torch.cuda.current_stream(out.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
@@ -61,12 +68,12 @@ def proj_add(F, p: torch.Tensor, q: torch.Tensor, b3) -> torch.Tensor:
     if p.shape != q.shape:
         raise ValueError(f"proj_add: shapes {tuple(p.shape)} and "
                          f"{tuple(q.shape)} differ")
-    _check("proj_add", F, p, q)
+    check_points("proj_add", F, p, q)
     out = torch.empty_like(p)
     n = p.numel() // (3 * math.prod(F.shape))
     if n:
-        _launch("proj_add", "zt_proj_add", F, b3, out, p.data_ptr(),
-                q.data_ptr(), out.data_ptr(), n)
+        launch("proj_add", "zt_proj_add", F, out, p.data_ptr(),
+               q.data_ptr(), out.data_ptr(), n, b3=b3)
         proj_add.launches += 1
         proj_add.launches_by_form[ct.form_of(F)] += 1
     return out
@@ -82,12 +89,12 @@ def proj_dbl_chain(F, p: torch.Tensor, k: int, b3) -> torch.Tensor:
         return p
     if p.device.type != "cuda":
         raise ValueError(f"proj_dbl_chain: unsupported device {p.device}")
-    _check("proj_dbl_chain", F, p)
+    check_points("proj_dbl_chain", F, p)
     out = torch.empty_like(p)
     n = p.numel() // (3 * math.prod(F.shape))
     if n:
-        _launch("proj_dbl_chain", "zt_proj_dbl_chain", F, b3, out,
-                p.data_ptr(), out.data_ptr(), n, k)
+        launch("proj_dbl_chain", "zt_proj_dbl_chain", F, out,
+               p.data_ptr(), out.data_ptr(), n, k, b3=b3)
         proj_dbl_chain.launches += 1
         proj_dbl_chain.launches_by_form[ct.form_of(F)] += 1
     return out

@@ -113,14 +113,22 @@ def _norm(x: torch.Tensor, folds: int = 3) -> torch.Tensor:
 
 def _conv(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Digit convolution: (..., m) x (..., m) -> (..., 2m) column sums
-    (top column zero).  Anti-diagonals are summed by re-viewing the padded
-    outer product with a row stride one shorter."""
+    (top column zero), as one batched float64 product of a against the
+    sliding windows of b.  Exact: digits are < 2^16, so a column is a sum
+    of at most 48 products < 2^32, far inside float64's 53 bits."""
     m = a.shape[-1]
-    outer = a.unsqueeze(-1) * b.unsqueeze(-2)  # (..., m, m)
-    padded = torch.nn.functional.pad(outer, (0, m))  # (..., m, 2m)
-    flat = padded.flatten(-2)[..., : m * (2 * m - 1)]
-    cols = flat.unflatten(-1, (m, 2 * m - 1)).sum(-2)  # (..., 2m-1)
-    return torch.nn.functional.pad(cols, (0, 1))
+    windows = torch.nn.functional.pad(b.double(), (m - 1, m)).unfold(-1, m, 1)
+    cols = torch.matmul(windows, a.flip(-1).double().unsqueeze(-1))
+    return cols.squeeze(-1).long()
+
+
+def _toeplitz(v: int, m: int) -> torch.Tensor:
+    """(m, 2m) float64 T with a @ T = _conv(a, digits of v)."""
+    d = torch.tensor(_digits(v, m), dtype=torch.float64)
+    t = torch.zeros(m, 2 * m, dtype=torch.float64)
+    for i in range(m):
+        t[i, i: i + m] = d
+    return t
 
 
 class Field:
@@ -157,7 +165,9 @@ class Field:
                 # 2^(16(m+1)) - p: adding it and dropping the top carry
                 # subtracts p from an (m+1)-digit value
                 "pc1": t((1 << (16 * (m + 1))) - self.p, m + 1),
-                "nprime": t(self._nprime, m),
+                # constant operands of the REDC products as matrices
+                "nprime_T": _toeplitz(self._nprime, m).to(device),
+                "p_T": _toeplitz(self.p, m).to(device),
                 "one": self.pack([self.r_mod_p], device)[0],
                 "r2": self.pack([self.r2], device)[0],
                 "plain_one": self.pack([1], device)[0],
@@ -231,9 +241,9 @@ class Field:
     def _mont_mul16(self, a16, b16, c):
         m = self.m
         t = _norm(torch.nn.functional.pad(_conv(a16, b16), (0, 1)))
-        q = _norm(_conv(t[..., :m], c["nprime"].expand_as(a16))[..., :m])
+        q = _norm((t[..., :m].double() @ c["nprime_T"])[..., :m].long())
         u = t + torch.nn.functional.pad(
-            _conv(q, c["p"].expand_as(q)), (0, 1)
+            (q.double() @ c["p_T"]).long(), (0, 1)
         )
         return self._cond_sub(_norm(u)[..., m:], c)
 

@@ -1,7 +1,9 @@
-"""Groth16 prover on the card: QAP division and all five MSMs on the device.
+"""Groth16 prover and trusted setup on the card.
 
 Ports ``snark/groth16_tpu.py`` (``DevicePk8`` 201, ``pack_pk8`` 227,
-``_prove8`` 422).  ``Groth16Torch.prove`` has the reference's signature, so
+``_prove8`` 422, the ``use_msm8=False`` branch of ``prove`` 582-647 and
+``generate_setup`` 283 with ``TpuSnarkBase`` 122-197).
+``Groth16Torch.prove`` has the reference's signature, so
 ``AggregatorCircuit.prove(prover=...)`` calls it unchanged.  The steps:
 
   * witness: Az, Bz, Cz from the native C engine (``native/witness.py``);
@@ -9,16 +11,23 @@ Ports ``snark/groth16_tpu.py`` (``DevicePk8`` 201, ``pack_pk8`` 227,
   * fft: the QAP division ``poly/fft_torch.h_pipeline`` on the device;
   * digitize: H to standard form on the device, the assignment packed as
     32-bit scalar limbs;
-  * msm: A, B1, L, H in G1 and B2 in G2 through one of the two engines
+  * msm: A, B1, L, H in G1 and B2 in G2 through one of the three engines
     of the reference: ``"msm4"`` (``ec/msm.py``, bucket sums in the CUDA
-    kernel ``csrc/bucket_reduce.cu``) or ``"msm8"`` (``ec/msm8.py``, every
-    group operation in ``csrc/proj_kernels.cu``), chosen as
-    ``groth16_tpu.py:510-513`` chooses: ``ZECALE_USE_MSM8`` set selects
-    msm8.  The coordinates of BW6-761 G1 and G2 lie in Fq; BLS12-377 G2
-    lies in Fq2 (``ff/fp2_torch.py``);
+    kernel ``csrc/bucket_reduce.cu``), ``"msm8"`` (``ec/msm8.py``, every
+    group operation in ``csrc/proj_kernels.cu``) or ``"jac"`` (the
+    reference's ``use_msm8=False`` branch: ``ec/msm_jac.py``, every group
+    operation in ``csrc/jac_kernels.cu``).  With no engine given, it is
+    chosen as ``groth16_tpu.py:510-513`` chooses: ``ZECALE_USE_MSM8`` set
+    selects msm8, else msm4.  The coordinates of BW6-761 G1 and G2 lie in
+    Fq; BLS12-377 G2 lies in Fq2 (``ff/fp2_torch.py``);
   * assembly: on the host exactly as ``groth16_tpu.py:566-580``, drawing
     rr then ss from ``rng``, so one ``random.Random`` state gives the same
     proof as the reference's provers.
+
+``generate_setup`` is the reference's device setup: the fixed-base
+products of ``setup_native.setup_from_products`` as windowed Jacobian
+scans on the card (``msm_jac.fixed_base_mul_batch``), so one rng state
+gives the native engine's keypair.
 """
 
 from __future__ import annotations
@@ -34,13 +43,14 @@ import torch
 
 from ..ec import curve_torch as ct
 from ..ec import host_curve as hc
-from ..ec import msm, msm8
+from ..ec import msm, msm8, msm_jac
 from ..ff import params as P
 from ..ff.fp_torch import field
 from ..native.witness import NativeR1CS
 from ..poly import fft_torch
 from ..utils.device import resolve
-from .groth16 import Groth16Proof, Groth16ProvingKey
+from . import setup_native
+from .groth16 import Groth16KeyPair, Groth16Proof, Groth16ProvingKey
 from .r1cs import R1CS
 
 QUERIES = ("a_query", "b_g1_query", "b_g2_query", "l_query", "h_query")
@@ -143,7 +153,7 @@ def from_reference_pk8(arrays: dict, curve_name: str, num_pub: int,
     )
 
 
-ENGINES = ("msm4", "msm8")
+ENGINES = ("msm4", "msm8", "jac")
 
 
 def default_engine() -> str:
@@ -155,7 +165,7 @@ def default_engine() -> str:
 class Groth16Torch:
     """Device Groth16 prover over an a = 0 curve: BW6-761 (the wrapper) or
     BLS12-377 (the nested application proofs, G2 over Fq2).  ``engine``
-    is "msm4" or "msm8"; None reads ``ZECALE_USE_MSM8``."""
+    is "msm4", "msm8" or "jac"; None reads ``ZECALE_USE_MSM8``."""
 
     name = "GROTH16"
 
@@ -180,6 +190,77 @@ class Groth16Torch:
 
     def _scalars(self, vals: Sequence[int], n: int) -> torch.Tensor:
         return self.Fr.pack(list(vals) + [0] * (n - len(vals)), self.device)
+
+    # -- trusted setup (``TpuSnarkBase`` 122-197) ---------------------------
+    def _batch_scalar_mul(self, g2: bool, scalars: Sequence[int], base,
+                          timings: Optional[dict] = None) -> list:
+        """[k_i] base for host ints -> host affine points (None for 0):
+        windowed fixed-base scans on the device in chunks of
+        ``msm_jac.BATCH_MUL_CHUNK`` lanes, then one batched conversion.
+        ``timings`` gains the seconds of the two steps: "device" (the
+        products, with the scalars' packing and the window tables) and
+        "affine"."""
+        t = {} if timings is None else timings
+        t0 = time.time()
+        chunk = msm_jac.BATCH_MUL_CHUNK
+        parts = [
+            msm_jac.fixed_base_mul_batch(
+                self.curve_name, g2,
+                self.Fr.pack(list(scalars[off: off + chunk]), self.device),
+                base)
+            for off in range(0, len(scalars), chunk)
+        ]
+        if not parts:
+            return []
+        self._sync()
+        t1 = time.time()
+        # one transfer and one batched inversion (``_jac_to_affine_batch``)
+        out = msm_jac.curve(self.curve_name, g2).to_affine_host(
+            torch.cat(parts))
+        t["device"] = t.get("device", 0.0) + t1 - t0
+        t["affine"] = t.get("affine", 0.0) + time.time() - t1
+        return out
+
+    def batch_mul_g1(self, scalars, base=None) -> list:
+        return self._batch_scalar_mul(
+            False, scalars, base or hc.generators(self.curve_name)[0])
+
+    def batch_mul_g2(self, scalars, base=None) -> list:
+        return self._batch_scalar_mul(
+            True, scalars, base or hc.generators(self.curve_name)[1])
+
+    def msm_device(self, g2: bool, query: dict, scalars: Sequence[int]):
+        """MSM of host ints against a padded device query (DevicePk
+        layout) -> one Jacobian point on the device (``msm_device`` 189)."""
+        n = query["xy"].shape[0]
+        if len(scalars) > n:
+            raise ValueError(f"msm_device: {len(scalars)} scalars for a "
+                             f"query of {n}")
+        crv = msm_jac.curve(self.curve_name, g2)
+        digits = msm_jac.scalar_digit_planes(
+            self._scalars(scalars, n),
+            self.r.bit_length(), msm_jac.MSM_WINDOW_C)
+        return msm_jac.msm_pippenger(crv, digits, query["xy"], query["inf"],
+                                     msm_jac.MSM_WINDOW_C)
+
+    def generate_setup(self, r1cs: R1CS,
+                       rng: Optional[random.Random] = None,
+                       timings: Optional[dict] = None) -> Groth16KeyPair:
+        """The trusted setup with its fixed-base products on the device
+        (``Groth16TPU.generate_setup`` 283): the native setup's keypair
+        from the same rng state.  ``timings`` gains the seconds of the
+        host scalars ("scalars"), the device products ("device") and their
+        conversion to affine points ("affine")."""
+        t = {} if timings is None else timings
+        g1, g2 = hc.generators(self.curve_name)
+        t0 = time.time()
+        kp = setup_native.setup_from_products(
+            self.curve_name, r1cs, rng,
+            lambda ks: self._batch_scalar_mul(False, ks, g1, t),
+            lambda ks: self._batch_scalar_mul(True, ks, g2, t))
+        t["scalars"] = (time.time() - t0 - t.get("device", 0.0)
+                        - t.get("affine", 0.0))
+        return kp
 
     def prove(
         self,
@@ -228,12 +309,12 @@ class Groth16Torch:
         l_scal = self._scalars(asg[num_pub:], dpk.n_g1)
         t0 = mark("digitize")
 
+        engine = {"msm4": msm.msm, "msm8": msm8.msm8,
+                  "jac": msm_jac.msm}[self.engine]
+
         def run(g2, scal, query):
-            if self.engine == "msm8":
-                return msm8.msm8(self.curve_name, g2, scal, query["xy"],
-                                 query["inf"])
-            return msm.msm(self.curve_name, g2, scal, query["xy"],
-                           query["inf"])
+            return engine(self.curve_name, g2, scal, query["xy"],
+                          query["inf"])
 
         ev_a_h = run(False, asg_g1, dpk.a_query)
         ev_b1_h = run(False, asg_g1, dpk.b_g1_query)

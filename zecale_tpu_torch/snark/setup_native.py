@@ -1,16 +1,19 @@
-# Copied from zecale_tpu/snark/groth16_native.py (Groth16Native.generate_setup, 139-208); only imports changed.
+# Copied from zecale_tpu/snark/groth16_native.py (Groth16Native.generate_setup, 139-208); imports changed, and the body split so that the device setup (groth16_torch.Groth16Torch.generate_setup) shares it.
 """Groth16 trusted setup on the native C engine (native/csrc/ec_engine.c).
 
 The wrapper circuit's setup is tens of thousands of fixed-base scalar
 multiplications; the pure-Python host setup takes about an hour at batch 1,
 so this module raises where the native engine cannot be built instead of
-falling back to it.
+falling back to it.  ``setup_from_products`` is the setup's scalar side,
+shared with the device setup: it draws tau, alpha, beta and delta from
+``rng`` in this order and hands the fixed-base products to the caller's
+multipliers, so one rng state gives one keypair whichever engine multiplies.
 """
 
 from __future__ import annotations
 
 import random
-from typing import Optional
+from typing import Callable, Optional
 
 from ..ec import host_curve as hc
 from ..ff import params as P
@@ -31,6 +34,25 @@ def generate_setup(
             "native EC engine did not build (gcc -fopenmp of "
             "zecale_tpu_torch/native/csrc); refusing the Python setup"
         )
+    g1_gen, g2_gen = hc.generators(curve_name)
+    return setup_from_products(
+        curve_name, r1cs, rng,
+        lambda s: nec.NativeCurve(curve_name, g2=False).fixed_base_mul_batch(
+            s, g1_gen),
+        lambda s: nec.NativeCurve(curve_name, g2=True).fixed_base_mul_batch(
+            s, g2_gen),
+    )
+
+
+def setup_from_products(
+    curve_name: str,
+    r1cs: R1CS,
+    rng: Optional[random.Random],
+    mul_g1: Callable[[list], list],
+    mul_g2: Callable[[list], list],
+) -> Groth16KeyPair:
+    """The keypair from the products [k_i] G1 = mul_g1(ks) and
+    [k_i] G2 = mul_g2(ks) (host affine points, None for 0)."""
     rng = rng or random.Random()
     r = P.CURVES[curve_name].r
     tau = rng.randrange(1, r)
@@ -58,11 +80,9 @@ def generate_setup(
         h_scalars.append(t_pow * z_tau % r * delta_inv % r)
         t_pow = t_pow * tau % r
 
-    g1_gen, g2_gen = hc.generators(curve_name)
-    g1 = nec.NativeCurve(curve_name, g2=False).fixed_base_mul_batch(
+    g1 = mul_g1(
         [alpha, beta, delta] + a_at + b_at + abc_scalars + l_scalars
-        + h_scalars,
-        g1_gen,
+        + h_scalars
     )
     alpha_g1, beta_g1, delta_g1 = g1[0], g1[1], g1[2]
     o = 3
@@ -76,9 +96,7 @@ def generate_setup(
     o += len(l_scalars)
     h_query = g1[o:]
 
-    g2v = nec.NativeCurve(curve_name, g2=True).fixed_base_mul_batch(
-        [beta, delta] + b_at, g2_gen
-    )
+    g2v = mul_g2([beta, delta] + b_at)
     beta_g2, delta_g2 = g2v[0], g2v[1]
     b_g2 = g2v[2:]
 

@@ -124,6 +124,19 @@ KERNELS = {
                                   ctypes.c_uint, _VP, _VP],
         },
     },
+    "jac_kernels.cu": {
+        "variants": {(form,): flags for form, flags in FORMS.items()},
+        "symbols": {
+            # p, q, out, n, prime, one, pinv, stream
+            "zt_jac_add": [_VP, _VP, _VP, _CI, _VP, _VP, ctypes.c_uint, _VP],
+            # p, out, n, k, prime, one, pinv, stream
+            "zt_jac_dbl_chain": [_VP, _VP, _CI, _CI, _VP, _VP,
+                                 ctypes.c_uint, _VP],
+            # a, ainf, b, binf, out, n, prime, one, pinv, stream
+            "zt_aff_add": [_VP, _VP, _VP, _VP, _VP, _CI, _VP, _VP,
+                           ctypes.c_uint, _VP],
+        },
+    },
 }
 
 
@@ -197,4 +210,7 @@ def host_check_lib() -> ctypes.CDLL:
     lib.zt_cpu_proj.argtypes = [ci, vp, vp, vp, ctypes.c_long, ci, vp, vp,
                                 ctypes.c_uint, vp]
     lib.zt_cpu_proj.restype = ci
+    lib.zt_cpu_jac.argtypes = [ci, ci, vp, vp, vp, vp, vp, ctypes.c_long, ci,
+                               vp, vp, ctypes.c_uint]
+    lib.zt_cpu_jac.restype = ci
     return lib
