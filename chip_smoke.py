@@ -4,8 +4,9 @@
 Phases, each printing one flushed line with its seconds:
 
   1. the card (nvidia-smi name and power limit) and the nvcc build of every
-     kernel (twelve nvcc processes started together; budget 60 s), with
-     each job's seconds and its ptxas register and spill lines;
+     kernel (one nvcc process per source and variant, all started
+     together), with each job's seconds and its ptxas register and spill
+     lines, and the SASS opcode counts of K2 / K4 (cuobjdump);
   2. the bucket-reduce kernel (K1) against its plain PyTorch version on the
      card, for BW6-761 G1 (b3=-3), BW6-761 G2 (b3=12), BLS12-377 G1 (b3=3)
      and [2b] BLS12-377 G2 over Fq2 (twist b3): a few thousand crafted
@@ -17,7 +18,10 @@ Phases, each printing one flushed line with its seconds:
      wrapper's msm8 window c) against their plain versions in all three
      field forms (Fq 12 and 24 limbs, Fq2), a few thousand pairs with O+O,
      O+P, P+O, P+P, P+(-P) and Z != 1, then each timed at the largest shape
-     the msm8 wrapper prove gives it; [2e] K4 jac_add, K5 jac_dbl_chain
+     the msm8 wrapper prove gives it; K2 (and K4 below) in every built
+     threads-per-point variant of utils/build.py:ADD_TPIS, each equal to
+     the plain version and timed there and at the batch sizes of SWEEP_N
+     below it (all of them at Fq 24); [2e] K4 jac_add, K5 jac_dbl_chain
      (k = 1, 3, 8) and K6 aff_add against their plain versions in the
      three forms on a few thousand crafted cases (O+O, O+P and P+O with
      nonzero X and Y at infinity, P+P with equal and with different Z,
@@ -38,7 +42,11 @@ Phases, each printing one flushed line with its seconds:
      and with the jac engine, which must give the same proof bit for bit;
      each verifies with primary inputs [vk_hash, 1, 7]; a corrupt nested
      proof must give result bit 0 in a valid wrapper, and a tampered
-     wrapper proof must be rejected;
+     wrapper proof must be rejected; [3j] the wrapper's device setup, the
+     msm8 and jac proves and a second msm4 prove run under torch.profiler
+     (CUDA activity), each with the device time of every kernel summed by
+     name and its K2 / K4 launches counted by batch size, with their
+     device ms;
   4. bench.py's MSM shape on the three engines: BLS12-377 G1 at n = 2^18
      with uniform scalars from random.Random(42) and 64 cycled bases,
      checked against the folded host MSM, Mpoints/s after one warm-up run;
@@ -66,6 +74,7 @@ import math
 import os
 import pickle
 import random
+import re
 import subprocess
 import sys
 import tempfile
@@ -96,6 +105,41 @@ def smi() -> str:
         capture_output=True, text=True, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+#: SASS opcodes counted in K2 / K4: multiply-adds, local memory (spills
+#: and runtime-indexed arrays), shuffles and votes
+SASS_OPS = ("IMAD", "LDL", "STL", "SHFL", "VOTE")
+
+
+def sass_counts(libs: dict) -> dict:
+    """{library: {kernel: {"all": instructions, op: count for SASS_OPS}}}
+    by cuobjdump -sass of {library: path}, one process each, all at once."""
+    from zecale_tpu_torch.utils import build
+
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    procs = {lib: subprocess.Popen([tool, "-sass", path], text=True,
+                                   stdout=subprocess.PIPE)
+             for lib, path in libs.items()}
+    out = {}
+    for lib, proc in procs.items():
+        text, _ = proc.communicate()
+        check(proc.returncode == 0, f"cuobjdump of {lib} failed")
+        counts, name = out.setdefault(lib, {}), None
+        for ln in text.splitlines():
+            fn = re.search(r"Function : (\S+)", ln)
+            if fn:
+                k = re.search(r"([a-z][a-z_]*_kernel)I", fn.group(1))
+                name = k.group(1) if k else fn.group(1)[:40]
+                counts[name] = dict.fromkeys(("all",) + SASS_OPS, 0)
+                continue
+            op = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                           r"([A-Z][A-Z0-9_]*)", ln)
+            if name and op:
+                counts[name]["all"] += 1
+                if op.group(1) in counts[name]:
+                    counts[name][op.group(1)] += 1
+    return out
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -173,6 +217,112 @@ def read_counts() -> dict:
     return {fn.__name__: {"launches": fn.launches,
                           "by_form": dict(fn.launches_by_form)}
             for fn in counted()}
+
+
+#: the kernel functions of each counted wrapper, as the profiler names them
+KERNEL_OF = {"bucket_reduce": "bucket_reduce_kernel",
+             "proj_add": "proj_add_kernel",
+             "proj_dbl_chain": "proj_dbl_chain_kernel",
+             "jac_add": "jac_add_kernel",
+             "jac_dbl_chain": "jac_dbl_chain_kernel",
+             "aff_add": "aff_add_kernel"}
+
+
+def profiled(fn) -> tuple:
+    """(fn(), profile) with fn run under torch.profiler (CUDA activity):
+    profile = {"device_ms": all kernels, "wall_s": the run, "by_kernel":
+    {our kernel: ms}, "top": the five largest others, "add_us": {"proj_add"
+    / "jac_add": [us of each launch, in launch order]}}.  device_ms is None
+    where the trace held no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.time()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    ours, others, starts = {}, {}, {"proj_add": [], "jac_add": []}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        name = next((k for k, v in KERNEL_OF.items() if v in e.name), None)
+        if name:
+            ours[name] = ours.get(name, 0.0) + us / 1e3
+            if name in starts:
+                starts[name].append((e.time_range.start, us))
+        else:
+            others[e.name[:60]] = others.get(e.name[:60], 0.0) + us / 1e3
+    total = sum(ours.values()) + sum(others.values())
+    top = dict(sorted(others.items(), key=lambda kv: -kv[1])[:5])
+    return out, {"device_ms": total or None, "wall_s": wall,
+                 "by_kernel": ours, "top": top,
+                 "add_us": {k: [us for _, us in sorted(v)]
+                            for k, v in starts.items()}}
+
+
+#: upper ends of the batch-size classes of the K2 / K4 launch histogram
+SIZE_CLASSES = (1, 128, 1024, 4096, 16384, 65536, None)
+
+
+class AddLaunches:
+    """Records the batch size of every K2 / K4 launch (both go through
+    proj_curve.launch_add) while it is entered; the launch counts stay the
+    wrappers' own."""
+
+    def __enter__(self):
+        from zecale_tpu_torch.ec import jac_curve as jc
+        from zecale_tpu_torch.ec import proj_curve as pc
+        from zecale_tpu_torch.ec.curve_torch import form_of
+
+        self.mods, self.orig = (pc, jc), pc.launch_add
+        self.sizes = []
+
+        def rec(name, sym, F, tpi, p, q, b3=None):
+            n = p.numel() // (3 * math.prod(F.shape))
+            if n:
+                self.sizes.append((name, form_of(F), n))
+            return self.orig(name, sym, F, tpi, p, q, b3=b3)
+
+        for m in self.mods:
+            m.launch_add = rec
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.mods:
+            m.launch_add = self.orig
+
+    def histogram(self, add_us: dict = None) -> dict:
+        """{kernel form: {"<=n": [launches, device ms or None]}}: device
+        ms from the profile's launches in order where their number is the
+        recorded one."""
+        from zecale_tpu_torch.utils import build
+
+        hist = {}
+        for name in ("proj_add", "jac_add"):
+            rows = [(f, n) for k, f, n in self.sizes if k == name]
+            us = (add_us or {}).get(name)
+            if us is not None and len(us) != len(rows):
+                us = None
+            for i, (form, n) in enumerate(rows):
+                top = next(c for c in SIZE_CLASSES if c is None or n <= c)
+                tpi = build.add_tpi(name, form, n)
+                key = f"<={top}" if top else f">{SIZE_CLASSES[-2]}"
+                cell = hist.setdefault(f"{name} {form} tpi{tpi}", {})
+                cell.setdefault(key, [0, 0.0 if us else None])
+                cell[key][0] += 1
+                if us:
+                    cell[key][1] += us[i] / 1e3
+        return hist
+
+
+def log_profile(run: str, profiles: dict, hists: dict) -> None:
+    prof = dict(profiles[run])
+    prof.pop("add_us")
+    log(f"[3j] {run}, device time by kernel: {json.dumps(prof)}; K2 / K4 "
+        f"launches [count, device ms] by batch size: "
+        f"{json.dumps(hists[run])}")
 
 
 # ---------------------------------------------------------------------------
@@ -318,8 +468,48 @@ def first_round(curve: str, n: int, c: int) -> int:
     return msm8._round_schedule(W * n, W << (c - 1))[0]
 
 
-def proj_phase(stats: dict) -> None:
+def max_err(got, ref) -> int:
+    return int((got.long() - ref.long()).abs().max()) if got.numel() else 0
+
+
+def reps_for(n: int) -> int:
+    """Launches to time at a batch of n: ~10 ms of work or more."""
+    return 200 if n <= 1024 else 20 if n <= 65536 else 3
+
+
+def sweep_add(name: str, run, ref, sizes, tpis, ops_per, bytes_per) -> dict:
+    """Each TPI variant of K2 / K4 on the first n rows of the inputs, for
+    each n of ``sizes``: equal to the plain version's rows, timed."""
+    out = {}
+    for n in sizes:
+        row = {"n": n}
+        row["bound_ms"], _ = bound(n * ops_per, n * bytes_per)
+        for t in tpis:
+            got = run(n, t)
+            check(max_err(got, ref[:n]) == 0,
+                  f"{name} tpi={t} n={n}: differs from plain")
+            row[f"tpi{t}_ms"] = cuda_ms(lambda t=t: run(n, t), reps_for(n))
+        out[n] = row
+    return out
+
+
+#: batch sizes of the K2 / K4 sweep: a Horner add, a step of msm8's scan
+#: 2, two sizes between, the setup's chunk, and at Fq 24 the jac engine's
+#: first tiled round and msm8's first combining round
+SWEEP_N = (1, 105, 1024, 4096, 16384, 49152, 1182721)
+
+
+def sweep_sizes(form: str, big: int) -> list:
+    """The table's shape first, then the sweep's sizes below it (all of
+    them at Fq 24)."""
+    return [big] + [n for n in SWEEP_N if n != big
+                    and (form == "fq24" or n < big)]
+
+
+def proj_phase(stats: dict, tpis: dict) -> None:
     import torch
+
+    from zecale_tpu_torch.utils import build
 
     from zecale_tpu_torch.ec import curve_torch as ct
     from zecale_tpu_torch.ec import host_curve as hc
@@ -378,8 +568,11 @@ def proj_phase(stats: dict) -> None:
         got = pc.proj_add(F, lhs, rhs, b3)
         ref = ct.proj_add(F, lhs, rhs, b3)
         torch.cuda.synchronize()
-        err = int((got.long() - ref.long()).abs().max())
+        err = max_err(got, ref)
         check(err == 0, f"K2 {form}: edge-case sums differ from plain")
+        for t in tpis[form]:  # every built variant, not only the pick
+            e = max_err(pc.proj_add_tpi(F, lhs, rhs, b3, t), ref)
+            check(e == 0, f"K2 {form} tpi={t}: edge-case sums differ")
         aff_l, aff_r = crv.to_affine_host(lhs[:60]), crv.to_affine_host(
             rhs[:60])
         check(crv.to_affine_host(got[:60])
@@ -391,30 +584,31 @@ def proj_phase(stats: dict) -> None:
         small_plain_ms = (time.time() - t_ref) * 1e3
 
         # at the largest shape of the paths (Z = 1 inputs; the kernel's
-        # time does not depend on the values)
+        # time does not depend on the values), every variant against the
+        # plain version and timed; at Fq 24 also the sweep of SWEEP_N
         gen_ = torch.Generator(device=dev).manual_seed(5)
         a = base[torch.randint(0, D, (big,), device=dev, generator=gen_)]
         b = base[torch.randint(0, D, (big,), device=dev, generator=gen_)]
-        run = lambda: pc.proj_add(F, a, b, b3)  # noqa: E731
-        got = run()
-        ms = cuda_ms(run, 3)
-        plain_ms = None
-        if form == "fq24":  # the wrapper's: the kernels line's entry
-            t_ref = time.time()
-            ref = ct.proj_add(F, a, b, b3)
-            torch.cuda.synchronize()
-            plain_ms = (time.time() - t_ref) * 1e3
-            e = int((got.long() - ref.long()).abs().max())
-            check(e == 0, "K2 fq24: main-shape sums differ from plain")
-            del ref
-        bms, bby = bound(big * add_muls(F) * mul_ops(F),
-                         big * 3 * 3 * words(F) * 4)
-        k2 = {"pairs": big, "ms": ms, "plain_ms": plain_ms,
-              "plain_ms_3000": small_plain_ms, "bound_ms": bms,
-              "bound_by": bby, "max_abs_err": err}
-        del a, b, got
-        log(f"[2c] K2 {form} ({curve} {'G2' if g2 else 'G1'}): equal to "
-            f"plain on {B} edge-case pairs; {json.dumps(k2)} "
+        t_ref = time.time()
+        ref = ct.proj_add(F, a, b, b3)
+        torch.cuda.synchronize()
+        plain_ms = (time.time() - t_ref) * 1e3
+        ops_per, bytes_per = add_muls(F) * mul_ops(F), 3 * 3 * words(F) * 4
+        run = lambda n, t: pc.proj_add_tpi(  # noqa: E731
+            F, a[:n], b[:n], b3, t)
+        sizes = sweep_sizes(form, big)
+        sweep = sweep_add(f"K2 {form}", run, ref, sizes, tpis[form],
+                          ops_per, bytes_per)
+        pick = build.add_tpi("proj_add", form, big)
+        bms, bby = bound(big * ops_per, big * bytes_per)
+        k2 = {"pairs": big, "tpi": pick, "ms": sweep[big][f"tpi{pick}_ms"],
+              "plain_ms": plain_ms, "plain_ms_3000": small_plain_ms,
+              "bound_ms": bms, "bound_by": bby, "max_abs_err": err,
+              "sweep": list(sweep.values())}
+        del a, b, got, ref
+        log(f"[2c] K2 {form} ({curve} {'G2' if g2 else 'G1'}): every TPI "
+            f"{tpis[form]} equal to plain on {B} edge-case pairs and at "
+            f"{len(sizes)} sizes; {json.dumps(k2)} "
             f"({time.time() - t0:.1f}s)")
 
         # [2d] K3 for k = 1, 6 and the wrapper's window c
@@ -456,8 +650,10 @@ def proj_phase(stats: dict) -> None:
 # ---------------------------------------------------------------------------
 
 
-def jac_phase(stats: dict) -> None:
+def jac_phase(stats: dict, tpis: dict) -> None:
     import torch
+
+    from zecale_tpu_torch.utils import build
 
     from zecale_tpu_torch.ec import curve_torch as ct
     from zecale_tpu_torch.ec import host_curve as hc
@@ -530,8 +726,11 @@ def jac_phase(stats: dict) -> None:
         got = jc.jac_add(F, lhs, rhs)
         ref = ct.jac_add(F, lhs, rhs)
         torch.cuda.synchronize()
-        err4 = int((got.long() - ref.long()).abs().max())
+        err4 = max_err(got, ref)
         check(err4 == 0, f"K4 {form}: crafted sums differ from plain")
+        for t in tpis[form]:  # every built variant, not only the pick
+            e = max_err(jc.jac_add_tpi(F, lhs, rhs, t), ref)
+            check(e == 0, f"K4 {form} tpi={t}: crafted sums differ")
         aff_l = crv.to_affine_host(lhs[:70])
         aff_r = crv.to_affine_host(rhs[:70])
         check(crv.to_affine_host(got[:70])
@@ -570,43 +769,59 @@ def jac_phase(stats: dict) -> None:
             f"({time.time() - t0:.1f}s)")
 
         # timed at the largest launch of the paths, on finite distinct
-        # points: every lane takes the generic formulas
+        # points: every lane takes the generic formulas; K4 in every TPI
+        # variant, at Fq 24 also at the sizes of SWEEP_N
         t0 = time.time()
+        nb = max(big, *SWEEP_N) if form == "fq24" else big
         gen_ = torch.Generator(device=dev).manual_seed(5)
-        ja = torch.randint(0, D, (big,), device=dev, generator=gen_)
-        jb = (ja + torch.randint(1, D, (big,), device=dev,
+        ja = torch.randint(0, D, (nb,), device=dev, generator=gen_)
+        jb = (ja + torch.randint(1, D, (nb,), device=dev,
                                  generator=gen_)) % D
         zbig = F.mul(xy[ja][:, 0], xy[jb][:, 1])  # nonzero w.h.p.
         z2b = F.mul(zbig, zbig)
         p4 = torch.stack([F.mul(xy[ja][:, 0], z2b),
                           F.mul(xy[ja][:, 1], F.mul(z2b, zbig)), zbig], 1)
-        finb = torch.zeros(big, dtype=torch.bool, device=dev)
-        q4 = crv.lift(xy[jb], finb)
+        fin = torch.zeros(nb, dtype=torch.bool, device=dev)
+        q4 = crv.lift(xy[jb], fin)
+        del zbig, z2b
         out = {}
         W = words(F)
-        for name, run, plain, ops, nbytes in (
-            ("jac_add", lambda: jc.jac_add(F, p4, q4),
-             lambda: ct.jac_add(F, p4, q4),
-             big * jac_muls(F, "add") * mul_ops(F), big * 9 * W * 4),
-            ("aff_add", lambda: jc.aff_add(F, xy[ja], finb, xy[jb], finb),
-             lambda: ct.aff_add(F, xy[ja], finb, xy[jb], finb),
-             big * jac_muls(F, "aff") * mul_ops(F),
-             big * (4 * W * 4 + 2 + 3 * W * 4)),
-        ):
-            got = run()
-            ms = cuda_ms(run, 3)
-            t_ref = time.time()
-            ref = plain()
-            torch.cuda.synchronize()
-            plain_ms = (time.time() - t_ref) * 1e3
-            e = int((got.long() - ref.long()).abs().max())
-            check(e == 0, f"{name} {form}: main-shape sums differ from plain")
-            bms, bby = bound(ops, nbytes)
-            out[name] = {"lanes": big, "ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": bms, "bound_by": bby,
-                         "max_abs_err": max(e, err4 if name == "jac_add"
-                                            else err6)}
-            del got, ref
+        t_ref = time.time()
+        ref = ct.jac_add(F, p4[:big], q4[:big])
+        torch.cuda.synchronize()
+        plain_ms = (time.time() - t_ref) * 1e3
+        if nb > big:
+            ref = ct.jac_add(F, p4, q4)
+        ops_per, bytes_per = jac_muls(F, "add") * mul_ops(F), 9 * W * 4
+        run = lambda n, t: jc.jac_add_tpi(  # noqa: E731
+            F, p4[:n], q4[:n], t)
+        sizes = sweep_sizes(form, big)
+        sweep = sweep_add(f"K4 {form}", run, ref, sizes, tpis[form],
+                          ops_per, bytes_per)
+        pick = build.add_tpi("jac_add", form, big)
+        bms, bby = bound(big * ops_per, big * bytes_per)
+        out["jac_add"] = {"lanes": big, "tpi": pick,
+                          "ms": sweep[big][f"tpi{pick}_ms"],
+                          "plain_ms": plain_ms, "bound_ms": bms,
+                          "bound_by": bby, "max_abs_err": err4,
+                          "sweep": list(sweep.values())}
+        del ref
+        xa, xb, fb = xy[ja[:big]], xy[jb[:big]], fin[:big]
+        run = lambda: jc.aff_add(F, xa, fb, xb, fb)  # noqa: E731
+        got = run()
+        ms = cuda_ms(run, 3)
+        t_ref = time.time()
+        ref = ct.aff_add(F, xa, fb, xb, fb)
+        torch.cuda.synchronize()
+        plain_ms = (time.time() - t_ref) * 1e3
+        e = max_err(got, ref)
+        check(e == 0, f"aff_add {form}: main-shape sums differ from plain")
+        bms, bby = bound(big * jac_muls(F, "aff") * mul_ops(F),
+                         big * (4 * W * 4 + 2 + 3 * W * 4))
+        out["aff_add"] = {"lanes": big, "ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": bms, "bound_by": bby,
+                          "max_abs_err": max(e, err6)}
+        del got, ref
         # the Horner fold's launch: one point, k = c
         one = p4[:1].contiguous()
         run = lambda: jc.jac_dbl_chain(F, one, c)  # noqa: E731
@@ -761,22 +976,29 @@ def prove_phase() -> dict:
         os.replace(kp_path + ".tmp", kp_path)
         how = "native setup"
     log(f"[3d] {how} ({time.time() - t0:.1f}s)")
-    t0 = time.time()
+    # [3j] a first, empty profile: the profiler's start-up is paid here and
+    # not inside the setup or a prove below
+    profiled(lambda: torch.zeros(1, device="cuda") + 1)
+    profiles, hists = {}, {}
     reset_counts()
     timings = {}
-    wkp_dev = prover_j.generate_setup(r1cs, rng, timings=timings)
-    torch.cuda.synchronize()
-    setup_s = time.time() - t0
+    with AddLaunches() as rec:
+        wkp_dev, profiles["device setup"] = profiled(
+            lambda: prover_j.generate_setup(r1cs, rng, timings=timings))
+    setup_s = profiles["device setup"]["wall_s"]  # not the trace's reading
     counts["setup"] = read_counts()
+    hists["device setup"] = rec.histogram(
+        profiles["device setup"]["add_us"])
     check(keypair_fields(wkp_dev) == keypair_fields(wkp),
           "wrapper device setup != native setup from the same rng state")
     for name in ("jac_add", "aff_add"):
         check(counts["setup"][name]["launches"] > 0,
               f"{name} never launched during the device setup")
     setup_phases = {k: round(v, 3) for k, v in timings.items()}
-    log(f"[3d] wrapper device setup ({setup_s:.1f}s) equals the native "
-        f"setup's keypair; launches {json.dumps(counts['setup'])}; phases "
-        f"{json.dumps(setup_phases)}")
+    log(f"[3d] wrapper device setup ({setup_s:.1f}s, under the profiler) "
+        f"equals the native setup's keypair; launches "
+        f"{json.dumps(counts['setup'])}; phases {json.dumps(setup_phases)}")
+    log_profile("device setup", profiles, hists)
 
     t0 = time.time()
     dpk = prover.pack_pk(wkp.pk, r1cs.num_primary + 1)
@@ -789,7 +1011,7 @@ def prove_phase() -> dict:
     runs = {}
     # msm4, then msm8 and jac from the same rng state, then msm4 again:
     # the first prove pays one-time host packing, so phases compare warm to
-    # warm
+    # warm.  All but the first run under the profiler ([3j])
     for tag, eng, run in (("[3f]", prover, "msm4"),
                           ("[3g]", prover8, "msm8"),
                           ("[3g]", prover_j, "jac"),
@@ -799,15 +1021,26 @@ def prove_phase() -> dict:
         r.setstate(state)
         reset_counts()
         t0 = time.time()
-        wep = circ.prove(nkp.vk, eps, wkp.pk, r, prover=dev_prover,
-                         check=True)
-        prove_s = time.time() - t0
+        go = lambda: circ.prove(  # noqa: E731
+            nkp.vk, eps, wkp.pk, r, prover=dev_prover, check=True)
+        if run == "msm4":
+            wep = go()
+            prove_s = time.time() - t0
+        else:
+            with AddLaunches() as rec:
+                wep, profiles[f"{run} prove"] = profiled(go)
+            hists[f"{run} prove"] = rec.histogram(
+                profiles[f"{run} prove"]["add_us"])
+            prove_s = profiles[f"{run} prove"]["wall_s"]
         counts[run] = read_counts()
         phases = {k: round(v, 3) for k, v in dev_prover.last_timings.items()}
         runs[run] = {"wep": wep, "prove_s": prove_s, "phases": phases}
         log(f"{tag} wrapper proof on the card, engine {run} "
-            f"({prove_s:.1f}s); launches {json.dumps(counts[run])}; "
+            f"({prove_s:.1f}s{'' if run == 'msm4' else ', under the profiler'}"
+            f"); launches {json.dumps(counts[run])}; "
             f"prover phases {json.dumps(phases)}")
+        if run != "msm4":
+            log_profile(f"{run} prove", profiles, hists)
         if run == "msm4 warm":
             break
         t0 = time.time()
@@ -839,12 +1072,15 @@ def prove_phase() -> dict:
 
     t0 = time.time()
     bad = [ExtendedProof(proof=eps[0].proof, inputs=[999])]
-    wep2 = circ.prove(nkp.vk, bad, wkp.pk, rng,
-                      prover=DeviceProver(prover, dpk), check=True)
+    dev_prover = DeviceProver(prover, dpk)
+    wep2 = circ.prove(nkp.vk, bad, wkp.pk, rng, prover=dev_prover,
+                      check=True)
     check(wep2.inputs[1] == 0, "corrupt nested proof did not give bit 0")
     check(host_w.verify(wep2.inputs, wep2.proof, wkp.vk),
           "wrapper of a corrupt nested proof does not verify")
-    log(f"[3h] corrupt nested proof: result bit 0, wrapper valid "
+    phases = {k: round(v, 3) for k, v in dev_prover.last_timings.items()}
+    log(f"[3h] corrupt nested proof: result bit 0, wrapper valid; its msm4 "
+        f"prove (warm, not profiled) phases {json.dumps(phases)} "
         f"({time.time() - t0:.1f}s)")
 
     t0 = time.time()
@@ -856,8 +1092,9 @@ def prove_phase() -> dict:
     check(not host_w.verify(wep.inputs, tampered, wkp.vk),
           "tampered wrapper proof accepted")
     log(f"[3i] tampered wrapper proof rejected ({time.time() - t0:.1f}s)")
-    return {"counts": counts, "setup_s": setup_s,
-            "runs": {k: {"prove_s": v["prove_s"], "phases": v["phases"]}
+
+    return {"counts": counts, "setup_s": setup_s, "profiles": profiles,
+            "hists": hists, "runs": {k: {"prove_s": v["prove_s"], "phases": v["phases"]}
                      for k, v in runs.items()}}
 
 
@@ -936,6 +1173,11 @@ def main() -> int:
         log(f"[1] built {line}")
     log(f"[1] kernel build {build_s:.1f}s, {len(build.last_build)} nvcc "
         f"jobs started together (budget 60s)")
+    sass = sass_counts({stem: info["path"]
+                        for stem, info in build.last_build.items()
+                        if stem.startswith("add_kernels")})
+    for lib, counts in sorted(sass.items()):
+        log(f"[1] SASS of {lib}: {json.dumps(counts)}")
 
     t0 = time.time()
     stats = {}
@@ -943,11 +1185,11 @@ def main() -> int:
     log(f"[2] K1 checks done ({time.time() - t0:.1f}s)")
     t0 = time.time()
     pstats = {}
-    proj_phase(pstats)
+    proj_phase(pstats, build.ADD_TPIS)
     log(f"[2] K2 / K3 checks done ({time.time() - t0:.1f}s)")
     t0 = time.time()
     jstats = {}
-    jac_phase(jstats)
+    jac_phase(jstats, build.ADD_TPIS)
     log(f"[2] K4 / K5 / K6 checks done ({time.time() - t0:.1f}s)")
 
     main_path = prove_phase()
@@ -972,18 +1214,19 @@ def main() -> int:
         entry("bucket_reduce", "bucket_reduce.cu",
               "zecale_tpu/ec/msm4.py:543", main_level,
               max(s["max_abs_err"] for s in stats.values())),
-        entry("proj_add", "proj_kernels.cu", "zecale_tpu/ec/ec_pallas.py:573",
+        entry("proj_add", "add_kernels.cu", "zecale_tpu/ec/ec_pallas.py:573",
               k2, max(p["proj_add"]["max_abs_err"] for p in pstats.values())),
         entry("proj_dbl_chain", "proj_kernels.cu",
               "zecale_tpu/ec/ec_pallas.py:596", k3,
               max(p["proj_dbl_chain"]["max_abs_err"]
                   for p in pstats.values())),
     ] + [
-        entry(name, "jac_kernels.cu", f"zecale_tpu/ec/ec_pallas.py:{line}",
+        entry(name, src, f"zecale_tpu/ec/ec_pallas.py:{line}",
               jstats["fq24"][name],
               max(j[name]["max_abs_err"] for j in jstats.values()))
-        for name, line in (("jac_add", 473), ("jac_dbl_chain", 514),
-                           ("aff_add", 543))
+        for name, src, line in (("jac_add", "add_kernels.cu", 473),
+                                ("jac_dbl_chain", "jac_kernels.cu", 514),
+                                ("aff_add", "jac_kernels.cu", 543))
     ]}
     for k in kernels["kernels"]:
         check(k["launches"] > 0, f"{k['name']} never launched on the paths")

@@ -1,17 +1,18 @@
 // Group laws for short Weierstrass curves with a = 0, written once over a
-// field type Fld -- Fq<12>, Fq<24> (field.cuh) or Fq2 (field2.cuh):
+// field type Fld -- Fq<12>, Fq<24> (field.cuh) or Fq2 (field2.cuh), and
+// the fast core's FqF / Fq2F (field_fast.cuh) for K2 and K4:
 //
 //   * the complete projective law (Renes-Costello-Batina 2016, algorithms
 //     7, 8 and 9), shared by the bucket reduce (K1) and the msm8 kernels
-//     (K2 proj_add, K3 proj_dbl_chain).  Plain PyTorch twins:
-//     ec/curve_torch.py (proj_add, proj_add_mixed, proj_dbl) and ec/msm.py
-//     (bucket_reduce_ref).  b3 = 3b is Fld::B3: a small signed integer over
-//     Fq (3 BLS12-377 G1, -3 BW6-761 G1, 12 BW6-761 G2) or the Fq2 constant
-//     (0, -3/5) of the BLS12-377 G2 twist;
-//   * the unified Jacobian law of the JAX package's JacCurve, shared by
-//     K4 jac_add, K5 jac_dbl_chain and K6 aff_add (jac_kernels.cu).  Plain
-//     PyTorch twins: ec/curve_torch.py (jac_add, jac_dbl, aff_add).  It
-//     needs no curve constant.
+//     (K2 proj_add in add_kernels.cu, K3 proj_dbl_chain).  Plain PyTorch
+//     twins: ec/curve_torch.py (proj_add, proj_add_mixed, proj_dbl) and
+//     ec/msm.py (bucket_reduce_ref).  b3 = 3b is Fld::B3: a small signed
+//     integer over Fq (3 BLS12-377 G1, -3 BW6-761 G1, 12 BW6-761 G2) or the
+//     Fq2 constant (0, -3/5) of the BLS12-377 G2 twist;
+//   * the unified Jacobian law of the JAX package's JacCurve, shared by K4
+//     jac_add (add_kernels.cu), K5 jac_dbl_chain and K6 aff_add
+//     (jac_kernels.cu).  Plain PyTorch twins: ec/curve_torch.py (jac_add,
+//     jac_dbl, aff_add).  It needs no curve constant.
 #pragma once
 #include "field.cuh"
 #include "field2.cuh"
@@ -28,19 +29,21 @@ ZT_HD void proj_identity(Proj<Fld>& r, const typename Fld::Params& F) {
   Fld::zero(r.z);
 }
 
-// a row of 3 W words (x | y | z)
+// a row of three coordinates (x | y | z), each Fld::ROW words in memory;
+// the field type moves the words this thread holds (all of them, or its
+// lane's slice where several threads share a point)
 template <class Fld>
 ZT_HD void proj_load(Proj<Fld>& r, const uint32_t* src) {
-  Fld::copy(r.x, src);
-  Fld::copy(r.y, src + Fld::W);
-  Fld::copy(r.z, src + 2 * Fld::W);
+  Fld::load(r.x, src, 0);
+  Fld::load(r.y, src, 1);
+  Fld::load(r.z, src, 2);
 }
 
 template <class Fld>
 ZT_HD void proj_store(uint32_t* dst, const Proj<Fld>& p) {
-  Fld::copy(dst, p.x);
-  Fld::copy(dst + Fld::W, p.y);
-  Fld::copy(dst + 2 * Fld::W, p.z);
+  Fld::store(dst, p.x, 0);
+  Fld::store(dst, p.y, 1);
+  Fld::store(dst, p.z, 2);
 }
 
 // r = p + q, RCB16 algorithm 7 (complete, any inputs).  r may alias p.
@@ -205,12 +208,81 @@ ZT_HD void jac_dbl(Jac<Fld>& r, const Jac<Fld>& p,
   Fld::sub(r.y, d, c, F);    // Y3 = E(D - X3) - 8C
 }
 
+// r = c ? a : b, word by word; r may alias a or b
+template <class Fld>
+ZT_HD void jac_pick(Jac<Fld>& r, bool c, const Jac<Fld>& a,
+                    const Jac<Fld>& b) {
+#pragma unroll
+  for (int j = 0; j < Fld::W; ++j) {
+    r.x[j] = c ? a.x[j] : b.x[j];
+    r.y[j] = c ? a.y[j] : b.y[j];
+    r.z[j] = c ? a.z[j] : b.z[j];
+  }
+}
+
+// jac_add over a field type whose votes span the whole warp
+// (Fld::kUniform): the shuffles of the field ops name every thread of the
+// warp, so all threads run one path.  Each computes the generic sum, and
+// the doubling too where any point of the warp needs it, and selects its
+// own case at the end: the same triples as jac_add's branches.
+template <class Fld>
+ZT_HD void jac_add_warp(Jac<Fld>& r, const Jac<Fld>& p, const Jac<Fld>& q,
+                        const typename Fld::Params& F) {
+  constexpr int W = Fld::W;
+  const bool pinf = Fld::is_zero(p.z), qinf = Fld::is_zero(q.z);
+  if (Fld::all(pinf || qinf)) {
+    jac_pick<Fld>(r, pinf, q, p);
+    return;
+  }
+  Jac<Fld> g, d = p;  // d: the doubling, where any point needs it
+  uint32_t z1z1[W], z2z2[W], u1[W], h[W], s1[W], rr[W], t[W];
+  Fld::mul(z1z1, p.z, p.z, F);
+  Fld::mul(z2z2, q.z, q.z, F);
+  Fld::mul(u1, p.x, z2z2, F);   // U1
+  Fld::mul(h, q.x, z1z1, F);    // U2
+  Fld::mul(t, q.z, z2z2, F);
+  Fld::mul(s1, p.y, t, F);      // S1
+  Fld::mul(t, p.z, z1z1, F);
+  Fld::mul(rr, q.y, t, F);      // S2
+  Fld::sub(h, h, u1, F);        // H = U2 - U1
+  Fld::sub(rr, rr, s1, F);      // R = S2 - S1
+  const bool hz = Fld::is_zero(h), rz = Fld::is_zero(rr);  // both votes
+  const bool dbl = hz && rz && !pinf && !qinf;
+  if (Fld::any(dbl)) jac_dbl<Fld>(d, p, F);
+  Fld::add(t, p.z, q.z, F);
+  Fld::mul(t, t, t, F);
+  Fld::sub(t, t, z1z1, F);
+  Fld::sub(t, t, z2z2, F);
+  Fld::mul(g.z, t, h, F);       // Z3 = ((Z1 + Z2)^2 - Z1Z1 - Z2Z2) H
+  Fld::add(t, h, h, F);
+  Fld::mul(t, t, t, F);         // I = (2H)^2
+  Fld::mul(z1z1, h, t, F);      // J = H I
+  Fld::mul(u1, u1, t, F);       // V = U1 I
+  Fld::add(rr, rr, rr, F);      // r = 2R
+  Fld::mul(t, rr, rr, F);
+  Fld::sub(t, t, z1z1, F);
+  Fld::sub(t, t, u1, F);
+  Fld::sub(g.x, t, u1, F);      // X3 = r^2 - J - 2V
+  Fld::sub(u1, u1, g.x, F);
+  Fld::mul(u1, rr, u1, F);
+  Fld::mul(s1, s1, z1z1, F);
+  Fld::add(s1, s1, s1, F);
+  Fld::sub(g.y, u1, s1, F);     // Y3 = r(V - X3) - 2 S1 J
+  jac_pick<Fld>(g, dbl, d, g);
+  jac_pick<Fld>(g, qinf, p, g);
+  jac_pick<Fld>(r, pinf, q, g);
+}
+
 // r = p + q, add-2007-bl (11M + 5S), with dbl-2009-l where P = Q.  r may
 // alias p or q.
 template <class Fld>
 ZT_HD void jac_add(Jac<Fld>& r, const Jac<Fld>& p, const Jac<Fld>& q,
                    const typename Fld::Params& F) {
   constexpr int W = Fld::W;
+  if constexpr (Fld::kUniform) {
+    jac_add_warp<Fld>(r, p, q, F);
+    return;
+  }
   if (Fld::is_zero(p.z)) {
     if (&r != &q) r = q;
     return;

@@ -166,7 +166,16 @@ struct Fq {
   using Params = FieldParams<N>;
   using B3 = int;
 
+  static constexpr int ROW = N;  // words of a coordinate in memory
+  static constexpr bool kUniform = false;  // see field_fast.cuh Lanes
   ZT_HD static void copy(uint32_t* r, const uint32_t* a) { fp_copy<N>(r, a); }
+  // coordinate k of a row of coordinates
+  ZT_HD static void load(uint32_t* r, const uint32_t* row, int k) {
+    fp_copy<N>(r, row + k * N);
+  }
+  ZT_HD static void store(uint32_t* row, const uint32_t* a, int k) {
+    fp_copy<N>(row + k * N, a);
+  }
   ZT_HD static void zero(uint32_t* r) {
 #pragma unroll
     for (int i = 0; i < N; ++i) r[i] = 0;

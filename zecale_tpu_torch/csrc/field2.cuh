@@ -21,8 +21,17 @@ struct Fq2 {
     uint32_t c[W];
   };
 
+  static constexpr int ROW = W;      // words of a coordinate in memory
+  static constexpr bool kUniform = false;  // see field_fast.cuh Lanes
   ZT_HD static void copy(uint32_t* r, const uint32_t* a) {
     fp_copy<W>(r, a);
+  }
+  // coordinate k of a row of coordinates
+  ZT_HD static void load(uint32_t* r, const uint32_t* row, int k) {
+    fp_copy<W>(r, row + k * W);
+  }
+  ZT_HD static void store(uint32_t* row, const uint32_t* a, int k) {
+    fp_copy<W>(row + k * W, a);
   }
   ZT_HD static void zero(uint32_t* r) {
 #pragma unroll

@@ -1,36 +1,35 @@
-// The Jacobian engine's group-law kernels (ec/jac_curve.py, ec/msm_jac.py):
+// The Jacobian engine's doubling and affine-add kernels (ec/jac_curve.py,
+// ec/msm_jac.py):
 //
-//   K4 zt_jac_add:       out[i] = p[i] + q[i], the unified Jacobian add
-//                        (curve.cuh jac_add), canonical outputs;
 //   K5 zt_jac_dbl_chain: out[i] = 2^k p[i], k doublings (curve.cuh
 //                        jac_dbl) inside the thread, one launch per chain;
 //   K6 zt_aff_add:       out[i] = a[i] + b[i] for affine (x, y) rows with
 //                        one infinity flag (a byte) per point, a Jacobian
 //                        result (curve.cuh aff_add).
 //
-// Replace zecale_tpu/ec/ec_pallas.py:_KernelFamily.jac_add (473-493),
-// jac_dbl (495) / jac_dbl_chain (514-541) and aff_add (543-569).  The TPU
-// kernels transposed a block of bt points into (ew, bt) limb planes so that
-// the VPU's lanes ran across points, and computed the generic sum, the
+// K4 jac_add, which this source held until it was redesigned, is now in
+// add_kernels.cu on the fast field core (field_fast.cuh).
+//
+// Replace zecale_tpu/ec/ec_pallas.py:_KernelFamily.jac_dbl (495) /
+// jac_dbl_chain (514-541) and aff_add (543-569).  The TPU kernels
+// transposed a block of bt points into (ew, bt) limb planes so that the
+// VPU's lanes ran across points, and computed the generic sum, the
 // doubling and the infinity cases for every lane before selecting.  Here
 // one thread owns one point: it reads its rows (x | y | z, the layout of
 // the torch tensors), branches to the one case its point is in, and writes
 // the row back.  A dbl chain is a loop inside the thread, so the point
 // never leaves registers between doublings.
 //
-// Bound: operations.  An add is 16 Montgomery products (11M + 5S; 7 where
-// it doubles), a doubling 7, a K6 add 6; over Fq2 each product is three
-// base products.  Each product is 2 NB^2 32x32->64-bit multiply-adds
-// against 3 W words of traffic per operand, far below the card's memory
-// rate.  A 24-limb add holds two points and seven temporaries, more than
-// the 255 registers a thread may have, so __launch_bounds__(128) lets 128
-// such threads share the SM's 65,536 and the rest spills to local memory.
-// A chain on one point (the MSM's Horner fold) is one thread's dependent
-// products: latency-bound, not bound by either.
+// Bound: operations.  A doubling is 7 Montgomery products, a K6 add 6;
+// over Fq2 each product is three base products.  Each product is 2 NB^2
+// 32x32->64-bit multiply-adds against 3 W words of traffic per operand,
+// far below the card's memory rate.  A chain on one point (the MSM's
+// Horner fold) is one thread's dependent products: latency-bound, not
+// bound by either.
 //
 // One source, built once per field form (-DZT_LIMBS=12 BLS12-377 Fq,
 // -DZT_LIMBS=24 BW6-761 Fq, -DZT_FQ2=1 BLS12-377 Fq2: three nvcc
-// processes), each exporting the three launchers with a plain C interface
+// processes), each exporting the two launchers with a plain C interface
 // that returns the CUDA error code of the launch (0 on success).
 #include <cuda_runtime.h>
 
@@ -43,21 +42,6 @@
 namespace {
 
 constexpr int kThreads = 128;
-
-template <class Fld>
-__global__ void __launch_bounds__(kThreads)
-    jac_add_kernel(const uint32_t* __restrict__ p,
-                   const uint32_t* __restrict__ q, uint32_t* __restrict__ out,
-                   int n, typename Fld::Params F) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const size_t row = (size_t)i * 3 * Fld::W;
-  Jac<Fld> a, b;
-  proj_load<Fld>(a, p + row);
-  proj_load<Fld>(b, q + row);
-  jac_add<Fld>(a, a, b, F);
-  proj_store<Fld>(out + row, a);
-}
 
 template <class Fld>
 __global__ void __launch_bounds__(kThreads)
@@ -99,18 +83,6 @@ __global__ void __launch_bounds__(kThreads)
 int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
 }  // namespace
-
-extern "C" int zt_jac_add(const void* p, const void* q, void* out, int n,
-                          const void* prime, const void* one, unsigned pinv,
-                          void* stream) {
-  if (n <= 0) return 0;
-  jac_add_kernel<ZtField>
-      <<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const uint32_t*>(p), static_cast<const uint32_t*>(q),
-          static_cast<uint32_t*>(out), n,
-          field_params<ZtField>(prime, one, pinv));
-  return (int)cudaGetLastError();
-}
 
 extern "C" int zt_jac_dbl_chain(const void* p, void* out, int n, int k,
                                 const void* prime, const void* one,

@@ -7,10 +7,13 @@ as hand-written kernels and whose element-wise glue (mask, select,
 infinity, the lift of affine points, the tree and bit-serial sums) is plain
 torch.
 
-  * K4 ``jac_add`` (``csrc/jac_kernels.cu`` zt_jac_add) replaces
+  * K4 ``jac_add`` (``csrc/add_kernels.cu`` zt_jac_add) replaces
     ``_KernelFamily.jac_add`` (473-493): B independent pairs, canonical
-    outputs;
-  * K5 ``jac_dbl_chain`` (zt_jac_dbl_chain) replaces ``_KernelFamily.jac_dbl``
+    outputs, on the fast field core (compile-time moduli, TPI threads per
+    point, TPI from ``utils/build.py:ADD_TPI`` by kernel, form and batch
+    size);
+  * K5 ``jac_dbl_chain`` (``csrc/jac_kernels.cu`` zt_jac_dbl_chain)
+    replaces ``_KernelFamily.jac_dbl``
     (495) and ``jac_dbl_chain`` (514): 2^k P by k doublings in one launch;
   * K6 ``aff_add`` (zt_aff_add) replaces ``_KernelFamily.aff_add``
     (543-569): affine + affine with per-point infinity flags, a Jacobian
@@ -37,7 +40,7 @@ import torch
 
 from ..ff import params as P
 from . import curve_torch as ct
-from .proj_curve import check_points, launch
+from .proj_curve import check_points, launch, launch_add
 
 
 def _count(fn, F) -> None:
@@ -47,19 +50,18 @@ def _count(fn, F) -> None:
 
 def jac_add(F, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """p + q for equal-shape Jacobian batches (K4)."""
+    return jac_add_tpi(F, p, q, None)
+
+
+def jac_add_tpi(F, p: torch.Tensor, q: torch.Tensor, tpi) -> torch.Tensor:
+    """``jac_add`` with K4's threads per point set to ``tpi`` (None: the
+    ADD_TPI table's)."""
     if p.device.type == "cpu":
         return ct.jac_add(F, p, q)
     if p.device.type != "cuda":
         raise ValueError(f"jac_add: unsupported device {p.device}")
-    if p.shape != q.shape:
-        raise ValueError(f"jac_add: shapes {tuple(p.shape)} and "
-                         f"{tuple(q.shape)} differ")
-    check_points("jac_add", F, p, q)
-    out = torch.empty_like(p)
-    n = p.numel() // (3 * math.prod(F.shape))
-    if n:
-        launch("jac_add", "zt_jac_add", F, out, p.data_ptr(), q.data_ptr(),
-               out.data_ptr(), n)
+    out = launch_add("jac_add", "zt_jac_add", F, tpi, p, q)
+    if out.numel():
         _count(jac_add, F)
     return out
 

@@ -5,12 +5,14 @@ Ports ``ec/ec_pallas.py:PallasProjCurve`` (745-792) and the glue of
 ``add``, ``dbl`` and ``dbl_chain`` run as hand-written kernels and whose
 element-wise glue (mask, select, identity, from_affine) is plain torch.
 
-  * K2 ``proj_add`` (``csrc/proj_kernels.cu`` zt_proj_add) replaces
+  * K2 ``proj_add`` (``csrc/add_kernels.cu`` zt_proj_add) replaces
     ``_KernelFamily.proj_add`` (573-594): B independent pairs, canonical
-    outputs;
-  * K3 ``proj_dbl_chain`` (zt_proj_dbl_chain) replaces
-    ``_KernelFamily.proj_dbl_chain`` (596-619): 2^k P by k doublings in one
-    launch.
+    outputs, on the fast field core (compile-time moduli, TPI threads per
+    point, TPI from ``utils/build.py:ADD_TPI`` by kernel, form and batch
+    size);
+  * K3 ``proj_dbl_chain`` (``csrc/proj_kernels.cu`` zt_proj_dbl_chain)
+    replaces ``_KernelFamily.proj_dbl_chain`` (596-619): 2^k P by k
+    doublings in one launch.
 
 Both exist in three forms, by the group's coordinate field: BLS12-377 Fq
 (12 limbs), BW6-761 Fq (24 limbs, G1 and G2) and BLS12-377 Fq2.  Points are
@@ -27,7 +29,13 @@ import math
 
 import torch
 
+from ..ff import params as P
 from . import curve_torch as ct
+
+#: the prime each kernel form is built for (add_kernels.cu fixes it at
+#: compile time; the other kernels take it as an argument)
+FORM_PRIME = {"fq12": P.CURVES["bls12-377"].q, "fq24": P.CURVES["bw6-761"].q,
+              "fq2": P.CURVES["bls12-377"].q}
 
 
 def check_points(name: str, F, *ts, width: int = 3) -> None:
@@ -59,21 +67,58 @@ def launch(name: str, sym: str, F, out, *args, b3=None) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
+def launch_add(name: str, sym: str, F, tpi, p, q,
+               b3=None) -> torch.Tensor:
+    """p + q by the fast-core kernel ``sym`` (K2 zt_proj_add with b3, K4
+    zt_jac_add without) with ``tpi`` threads per point (None: the
+    ADD_TPI table's pick for the batch).  Raise unless F is the field the
+    form was built for, or on a CUDA error."""
+    from ..utils.build import add_tpi, cuda_kernels
+
+    if p.shape != q.shape:
+        raise ValueError(f"{name}: shapes {tuple(p.shape)} and "
+                         f"{tuple(q.shape)} differ")
+    check_points(name, F, p, q)
+    form = ct.form_of(F)
+    base = getattr(F, "base", F)
+    if base.p != FORM_PRIME.get(form) or getattr(F, "nr", -5) != -5:
+        raise ValueError(f"{name}: the {form} kernels are built for another "
+                         "field")
+    # the kernel reads 8- and 16-byte pieces of each row
+    p, q = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (p, q))
+    out = torch.empty_like(p)
+    n = p.numel() // (3 * math.prod(F.shape))
+    if n:
+        if tpi is None:
+            tpi = add_tpi(name, form, n)
+        args = [p.data_ptr(), q.data_ptr(), out.data_ptr(), n]
+        if b3 is not None:
+            args.append(ct.kernel_consts(F, b3)[3].ctypes.data)
+        fn = cuda_kernels().get((sym, (form, tpi)))
+        if fn is None:
+            raise ValueError(f"{name}: no {form} variant with {tpi} threads "
+                             "per point is built")
+        rc = fn(*args, torch.cuda.current_stream(out.device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    return out
+
+
 def proj_add(F, p: torch.Tensor, q: torch.Tensor, b3) -> torch.Tensor:
     """p + q for equal-shape point batches (complete RCB add)."""
+    return proj_add_tpi(F, p, q, b3, None)
+
+
+def proj_add_tpi(F, p: torch.Tensor, q: torch.Tensor, b3,
+                 tpi) -> torch.Tensor:
+    """``proj_add`` with K2's threads per point set to ``tpi`` (None: the
+    ADD_TPI table's)."""
     if p.device.type == "cpu":
         return ct.proj_add(F, p, q, b3)
     if p.device.type != "cuda":
         raise ValueError(f"proj_add: unsupported device {p.device}")
-    if p.shape != q.shape:
-        raise ValueError(f"proj_add: shapes {tuple(p.shape)} and "
-                         f"{tuple(q.shape)} differ")
-    check_points("proj_add", F, p, q)
-    out = torch.empty_like(p)
-    n = p.numel() // (3 * math.prod(F.shape))
-    if n:
-        launch("proj_add", "zt_proj_add", F, out, p.data_ptr(),
-               q.data_ptr(), out.data_ptr(), n, b3=b3)
+    out = launch_add("proj_add", "zt_proj_add", F, tpi, p, q, b3=b3)
+    if out.numel():
         proj_add.launches += 1
         proj_add.launches_by_form[ct.form_of(F)] += 1
     return out

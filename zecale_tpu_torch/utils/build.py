@@ -1,14 +1,14 @@
 """Build of the port's hand-written kernels into plain-C shared libraries.
 
 ``nvcc`` compiles each kernel source of ``KERNELS`` for ``sm_90a``, once
-per variant (field form, input form), into a ``.so`` with a plain C
-interface, loaded with ``ctypes``: no PyTorch headers, so the build takes
-seconds rather than the minutes of ``torch.utils.cpp_extension``.  The
-same headers also build with ``g++`` into a CPU library (``host_check.cpp``)
-that the tests run here.  Builds happen at first use, land in the
-git-ignored ``zecale_tpu_torch/_build/`` under a name keyed by a hash of the
-sources and flags, and are renamed into place so that parallel processes
-never load a half-written file.
+per variant (field form; input form or threads per point), into a ``.so``
+with a plain C interface, loaded with ``ctypes``: no PyTorch headers, so
+the build takes seconds rather than the minutes of
+``torch.utils.cpp_extension``.  The same headers also build with ``g++``
+into a CPU library (``host_check.cpp``) that the tests run here.  Builds
+happen at first use, land in the git-ignored ``zecale_tpu_torch/_build/``
+under a name keyed by a hash of the sources and flags, and are renamed
+into place so that parallel processes never load a half-written file.
 """
 
 from __future__ import annotations
@@ -31,7 +31,8 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-GXX_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC", "-Wno-unknown-pragmas"]
+GXX_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC", "-pthread",
+             "-Wno-unknown-pragmas"]
 
 #: seconds and compiler log of the last build done by this process
 last_build: dict = {}
@@ -98,6 +99,43 @@ FORMS = {
     "fq2": ["-DZT_FQ2=1"],
 }
 
+#: Threads per point of K2 (proj_add) and K4 (jac_add), add_kernels.cu,
+#: by kernel and form: rows (largest batch, TPI), the last row's bound
+#: None (any batch).  A wrapper takes the first row whose bound holds its
+#: batch.  The build makes every TPI a form names, for both kernels: at
+#: most two a form.  From a sweep of every TPI on the H100 (PERF.md
+#: section 6): at Fq 24 and Fq2 lanes beat one thread a point
+#: (its registers spill), eight a point on small batches; at Fq 12 one
+#: thread wins from a few thousand points up.
+ADD_TPI = {
+    "proj_add": {
+        "fq12": ((None, 1),),
+        "fq24": ((16384, 8), (None, 4)),
+        "fq2": ((None, 4),),
+    },
+    "jac_add": {
+        "fq12": ((4096, 4), (None, 1)),
+        "fq24": ((16384, 8), (None, 4)),
+        "fq2": ((4096, 4), (None, 1)),
+    },
+}
+
+
+def add_tpi(kernel: str, form: str, n: int) -> int:
+    """Threads per point of ``kernel`` (K2 "proj_add" or K4 "jac_add") for
+    a batch of n points in ``form``."""
+    for bound, tpi in ADD_TPI[kernel][form]:
+        if bound is None or n <= bound:
+            return tpi
+    raise ValueError(f"ADD_TPI[{kernel!r}][{form!r}] has no row for n = {n}")
+
+
+#: the TPIs built for each form: every one that ADD_TPI names
+ADD_TPIS = {form: sorted({t for table in ADD_TPI.values()
+                          for _, t in table[form]})
+            for form in FORMS}
+
+
 #: One entry per kernel source: its variants (key -> -D flags, one nvcc and
 #: one library each) and the C functions every variant exports, with their
 #: ctypes argtypes.  Every launcher returns the CUDA error code (int).
@@ -113,12 +151,19 @@ KERNELS = {
                                  ctypes.c_uint, _VP, _VP],
         },
     },
+    "add_kernels.cu": {
+        "variants": {(form, t): FORMS[form] + [f"-DZT_TPI={t}"]
+                     for form, ts in ADD_TPIS.items() for t in ts},
+        "symbols": {
+            # p, q, out, n, b3, stream
+            "zt_proj_add": [_VP, _VP, _VP, _CI, _VP, _VP],
+            # p, q, out, n, stream
+            "zt_jac_add": [_VP, _VP, _VP, _CI, _VP],
+        },
+    },
     "proj_kernels.cu": {
         "variants": {(form,): flags for form, flags in FORMS.items()},
         "symbols": {
-            # p, q, out, n, prime, one, pinv, b3, stream
-            "zt_proj_add": [_VP, _VP, _VP, _CI, _VP, _VP, ctypes.c_uint,
-                            _VP, _VP],
             # p, out, n, k, prime, one, pinv, b3, stream
             "zt_proj_dbl_chain": [_VP, _VP, _CI, _CI, _VP, _VP,
                                   ctypes.c_uint, _VP, _VP],
@@ -127,8 +172,6 @@ KERNELS = {
     "jac_kernels.cu": {
         "variants": {(form,): flags for form, flags in FORMS.items()},
         "symbols": {
-            # p, q, out, n, prime, one, pinv, stream
-            "zt_jac_add": [_VP, _VP, _VP, _CI, _VP, _VP, ctypes.c_uint, _VP],
             # p, out, n, k, prime, one, pinv, stream
             "zt_jac_dbl_chain": [_VP, _VP, _CI, _CI, _VP, _VP,
                                  ctypes.c_uint, _VP],
@@ -138,7 +181,6 @@ KERNELS = {
         },
     },
 }
-
 
 @functools.lru_cache(maxsize=None)
 def cuda_kernels() -> dict:
@@ -213,4 +255,11 @@ def host_check_lib() -> ctypes.CDLL:
     lib.zt_cpu_jac.argtypes = [ci, ci, vp, vp, vp, vp, vp, ctypes.c_long, ci,
                                vp, vp, ctypes.c_uint]
     lib.zt_cpu_jac.restype = ci
+    lib.zt_cpu_fast_field.argtypes = [ci, ci, ci, vp, vp, vp, ctypes.c_long]
+    lib.zt_cpu_fast_field.restype = ci
+    lib.zt_cpu_fast_add.argtypes = [ci, ci, ci, vp, vp, vp, ctypes.c_long,
+                                    vp]
+    lib.zt_cpu_fast_add.restype = ci
+    lib.zt_cpu_fast_consts.argtypes = [ci, vp, vp]
+    lib.zt_cpu_fast_consts.restype = ctypes.c_uint
     return lib
