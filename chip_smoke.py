@@ -6,7 +6,8 @@ Phases, each printing one flushed line with its seconds:
   1. the card (nvidia-smi name and power limit) and the nvcc build of every
      kernel (one nvcc process per source and variant, all started
      together), with each job's seconds and its ptxas register and spill
-     lines, and the SASS opcode counts of K2 / K4 (cuobjdump);
+     lines, and the SASS opcode counts of K2-K5 (cuobjdump of
+     fast_kernels);
   2. the bucket-reduce kernel (K1) against its plain PyTorch version on the
      card, for BW6-761 G1 (b3=-3), BW6-761 G2 (b3=12), BLS12-377 G1 (b3=3)
      and [2b] BLS12-377 G2 over Fq2 (twist b3): a few thousand crafted
@@ -15,20 +16,24 @@ Phases, each printing one flushed line with its seconds:
      variants that the kernel table reports), the launches of an MSM at
      n = 2^16, timed;
      [2c] K2 proj_add and [2d] K3 proj_dbl_chain (k = 1, 6 and the
-     wrapper's msm8 window c) against their plain versions in all three
-     field forms (Fq 12 and 24 limbs, Fq2), a few thousand pairs with O+O,
-     O+P, P+O, P+P, P+(-P) and Z != 1, then each timed at the largest shape
-     the msm8 wrapper prove gives it; K2 (and K4 below) in every built
-     threads-per-point variant of utils/build.py:ADD_TPIS, each equal to
-     the plain version and timed there and at the batch sizes of SWEEP_N
-     below it (all of them at Fq 24); [2e] K4 jac_add, K5 jac_dbl_chain
-     (k = 1, 3, 8) and K6 aff_add against their plain versions in the
-     three forms on a few thousand crafted cases (O+O, O+P and P+O with
-     nonzero X and Y at infinity, P+P with equal and with different Z,
-     P+(-P), distinct points; K6 with each infinity flag, P = Q, P = -Q),
-     then K4 and K6 timed at the first tiled round of the jac engine's
-     largest MSM (48 windows x 1,024 tiles of a BW6-761 G1 MSM at n =
-     2^16) and K5 at its Horner fold (one point, k = 8);
+     wrapper's msm8 window c = 11) against their plain versions in all
+     three field forms (Fq 12 and 24 limbs, Fq2), a few thousand pairs with
+     O+O, O+P, P+O, P+P, P+(-P) and Z != 1, then K2 timed at the largest
+     shape the msm8 wrapper prove gives it; K2 (and K4 below) in every
+     built threads-per-point variant of utils/build.py:ADD_TPIS, each equal
+     to the plain version and timed there and at the batch sizes of
+     SWEEP_N below it (all of them at Fq 24); K3 (and K5 below), one warp
+     a point with the products of each step side by side, in every built
+     TPI, equal to plain on the crafted points, on one point and on W
+     points, and timed at its Horner fold's k on the batches of
+     DBL_SWEEP_N (one point and the paths' 35 and 48); [2e] K4 jac_add, K5 jac_dbl_chain (k = 1,
+     3, 8) and K6 aff_add against their plain versions in the three forms
+     on a few thousand crafted cases (O+O, O+P and P+O with nonzero X and Y
+     at infinity, P+P with equal and with different Z, P+(-P), distinct
+     points; K6 with each infinity flag, P = Q, P = -Q), then K4 and K6
+     timed at the first tiled round of the jac engine's largest MSM (48
+     windows x 1,024 tiles of a BW6-761 G1 MSM at n = 2^16) and K5 at its
+     Horner fold (k = 8);
   3. a small Groth16 proof on the card equal to the host prover's; [3b] the
      nested BLS12-377 dummy-app proof made on the card (G2 over Fq2), equal
      to the host prover's from the same rng state and valid, its keypair
@@ -45,8 +50,8 @@ Phases, each printing one flushed line with its seconds:
      wrapper proof must be rejected; [3j] the wrapper's device setup, the
      msm8 and jac proves and a second msm4 prove run under torch.profiler
      (CUDA activity), each with the device time of every kernel summed by
-     name and its K2 / K4 launches counted by batch size, with their
-     device ms;
+     name and its K2-K5 launches counted by batch size and variant, with
+     their device ms;
   4. bench.py's MSM shape on the three engines: BLS12-377 G1 at n = 2^18
      with uniform scalars from random.Random(42) and 64 cycled bases,
      checked against the folded host MSM, Mpoints/s after one warm-up run;
@@ -107,7 +112,7 @@ def smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-#: SASS opcodes counted in K2 / K4: multiply-adds, local memory (spills
+#: SASS opcodes counted in K2-K5: multiply-adds, local memory (spills
 #: and runtime-indexed arrays), shuffles and votes
 SASS_OPS = ("IMAD", "LDL", "STL", "SHFL", "VOTE")
 
@@ -129,8 +134,7 @@ def sass_counts(libs: dict) -> dict:
         for ln in text.splitlines():
             fn = re.search(r"Function : (\S+)", ln)
             if fn:
-                k = re.search(r"([a-z][a-z_]*_kernel)I", fn.group(1))
-                name = k.group(1) if k else fn.group(1)[:40]
+                name = build.kernel_label(fn.group(1)) or fn.group(1)[:40]
                 counts[name] = dict.fromkeys(("all",) + SASS_OPS, 0)
                 continue
             op = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
@@ -228,12 +232,16 @@ KERNEL_OF = {"bucket_reduce": "bucket_reduce_kernel",
              "aff_add": "aff_add_kernel"}
 
 
+#: the wrappers whose launches [3j] counts by batch size and variant
+SIZED = ("proj_add", "jac_add", "proj_dbl_chain", "jac_dbl_chain")
+
+
 def profiled(fn) -> tuple:
     """(fn(), profile) with fn run under torch.profiler (CUDA activity):
     profile = {"device_ms": all kernels, "wall_s": the run, "by_kernel":
-    {our kernel: ms}, "top": the five largest others, "add_us": {"proj_add"
-    / "jac_add": [us of each launch, in launch order]}}.  device_ms is None
-    where the trace held no device time."""
+    {our kernel: ms}, "top": the five largest others, "launch_us": {each
+    kernel of SIZED: [us of each launch, in launch order]}}.  device_ms is
+    None where the trace held no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -242,7 +250,7 @@ def profiled(fn) -> tuple:
         out = fn()
         torch.cuda.synchronize()
     wall = time.time() - t0
-    ours, others, starts = {}, {}, {"proj_add": [], "jac_add": []}
+    ours, others, starts = {}, {}, {k: [] for k in SIZED}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -258,58 +266,68 @@ def profiled(fn) -> tuple:
     top = dict(sorted(others.items(), key=lambda kv: -kv[1])[:5])
     return out, {"device_ms": total or None, "wall_s": wall,
                  "by_kernel": ours, "top": top,
-                 "add_us": {k: [us for _, us in sorted(v)]
-                            for k, v in starts.items()}}
+                 "launch_us": {k: [us for _, us in sorted(v)]
+                               for k, v in starts.items()}}
 
 
-#: upper ends of the batch-size classes of the K2 / K4 launch histogram
+#: upper ends of the batch-size classes of the K2-K5 launch histogram
 SIZE_CLASSES = (1, 128, 1024, 4096, 16384, 65536, None)
 
 
-class AddLaunches:
-    """Records the batch size of every K2 / K4 launch (both go through
-    proj_curve.launch_add) while it is entered; the launch counts stay the
-    wrappers' own."""
+class Launches:
+    """Records the batch size and variant of every K2-K5 launch (K2 / K4
+    through proj_curve.launch_add, K3 / K5 through launch_dbl) while it is
+    entered; the launch counts stay the wrappers' own."""
 
     def __enter__(self):
         from zecale_tpu_torch.ec import jac_curve as jc
         from zecale_tpu_torch.ec import proj_curve as pc
         from zecale_tpu_torch.ec.curve_torch import form_of
+        from zecale_tpu_torch.utils import build
 
-        self.mods, self.orig = (pc, jc), pc.launch_add
+        self.mods = (pc, jc)
+        self.orig = (pc.launch_add, pc.launch_dbl)
         self.sizes = []
 
-        def rec(name, sym, F, tpi, p, q, b3=None):
-            n = p.numel() // (3 * math.prod(F.shape))
+        def points(F, p):
+            return p.numel() // (3 * math.prod(F.shape))
+
+        def rec_add(name, sym, F, tpi, p, q, b3=None):
+            n, form = points(F, p), form_of(F)
             if n:
-                self.sizes.append((name, form_of(F), n))
-            return self.orig(name, sym, F, tpi, p, q, b3=b3)
+                t = tpi or build.add_tpi(name, form, n)
+                self.sizes.append((name, form, n, f"tpi{t}"))
+            return self.orig[0](name, sym, F, tpi, p, q, b3=b3)
+
+        def rec_dbl(name, sym, F, tpi, p, k, b3=None):
+            n, form = points(F, p), form_of(F)
+            if n:
+                t = tpi or build.dbl_tpi(name, form, n)
+                self.sizes.append((name, form, n, f"tpi{t}"))
+            return self.orig[1](name, sym, F, tpi, p, k, b3=b3)
 
         for m in self.mods:
-            m.launch_add = rec
+            m.launch_add, m.launch_dbl = rec_add, rec_dbl
         return self
 
     def __exit__(self, *exc):
         for m in self.mods:
-            m.launch_add = self.orig
+            m.launch_add, m.launch_dbl = self.orig
 
-    def histogram(self, add_us: dict = None) -> dict:
-        """{kernel form: {"<=n": [launches, device ms or None]}}: device
-        ms from the profile's launches in order where their number is the
-        recorded one."""
-        from zecale_tpu_torch.utils import build
-
+    def histogram(self, launch_us: dict = None) -> dict:
+        """{"kernel form variant": {"<=n": [launches, device ms or None]}}:
+        device ms from the profile's launches in order where their number
+        is the recorded one."""
         hist = {}
-        for name in ("proj_add", "jac_add"):
-            rows = [(f, n) for k, f, n in self.sizes if k == name]
-            us = (add_us or {}).get(name)
+        for name in SIZED:
+            rows = [(f, n, v) for k, f, n, v in self.sizes if k == name]
+            us = (launch_us or {}).get(name)
             if us is not None and len(us) != len(rows):
                 us = None
-            for i, (form, n) in enumerate(rows):
+            for i, (form, n, variant) in enumerate(rows):
                 top = next(c for c in SIZE_CLASSES if c is None or n <= c)
-                tpi = build.add_tpi(name, form, n)
                 key = f"<={top}" if top else f">{SIZE_CLASSES[-2]}"
-                cell = hist.setdefault(f"{name} {form} tpi{tpi}", {})
+                cell = hist.setdefault(f"{name} {form} {variant}", {})
                 cell.setdefault(key, [0, 0.0 if us else None])
                 cell[key][0] += 1
                 if us:
@@ -319,8 +337,8 @@ class AddLaunches:
 
 def log_profile(run: str, profiles: dict, hists: dict) -> None:
     prof = dict(profiles[run])
-    prof.pop("add_us")
-    log(f"[3j] {run}, device time by kernel: {json.dumps(prof)}; K2 / K4 "
+    prof.pop("launch_us")
+    log(f"[3j] {run}, device time by kernel: {json.dumps(prof)}; K2-K5 "
         f"launches [count, device ms] by batch size: "
         f"{json.dumps(hists[run])}")
 
@@ -477,20 +495,48 @@ def reps_for(n: int) -> int:
     return 200 if n <= 1024 else 20 if n <= 65536 else 3
 
 
-def sweep_add(name: str, run, ref, sizes, tpis, ops_per, bytes_per) -> dict:
-    """Each TPI variant of K2 / K4 on the first n rows of the inputs, for
-    each n of ``sizes``: equal to the plain version's rows, timed."""
+def sweep(name: str, run, ref, sizes, variants: dict, ops_per,
+          bytes_per) -> dict:
+    """Each variant of a kernel ({label: argument of run}) on the first n
+    rows of the inputs, for each n of ``sizes``: equal to the plain
+    version's rows, timed."""
     out = {}
     for n in sizes:
         row = {"n": n}
         row["bound_ms"], _ = bound(n * ops_per, n * bytes_per)
-        for t in tpis:
-            got = run(n, t)
+        for label, v in variants.items():
+            got = run(n, v)
             check(max_err(got, ref[:n]) == 0,
-                  f"{name} tpi={t} n={n}: differs from plain")
-            row[f"tpi{t}_ms"] = cuda_ms(lambda t=t: run(n, t), reps_for(n))
+                  f"{name} {label} n={n}: differs from plain")
+            row[f"{label}_ms"] = cuda_ms(lambda v=v: run(n, v), reps_for(n))
         out[n] = row
     return out
+
+
+def tpi_variants(tpis) -> dict:
+    """K2-K5 sweep variants: one per built TPI."""
+    return {f"tpi{t}": t for t in tpis}
+
+
+#: batch sizes of the K3 / K5 sweep: the Horner fold's one point, msm8's
+#: 35-window scan and the jac engine's 48-window bit-serial doublings
+DBL_SWEEP_N = (1, 35, 48)
+
+
+def dbl_check(name: str, run, plain, pts, ks, tpis, w: int) -> int:
+    """Every TPI of K3 / K5 (run(x, k, tpi)) equal to the plain
+    chain (plain(x, k)) on the crafted points, on one point and on w
+    points, for each k of ``ks``; returns the largest error (0)."""
+    err = 0
+    for k in ks:
+        ref = plain(pts, k)
+        for label, v in tpi_variants(tpis).items():
+            for n in (pts.shape[0], 1, w):
+                e = max_err(run(pts[:n], k, v), ref[:n])
+                check(e == 0, f"{name} {label} k={k} n={n}: differs from "
+                      f"plain")
+                err = max(err, e)
+    return err
 
 
 #: batch sizes of the K2 / K4 sweep: a Horner add, a step of msm8's scan
@@ -597,52 +643,64 @@ def proj_phase(stats: dict, tpis: dict) -> None:
         run = lambda n, t: pc.proj_add_tpi(  # noqa: E731
             F, a[:n], b[:n], b3, t)
         sizes = sweep_sizes(form, big)
-        sweep = sweep_add(f"K2 {form}", run, ref, sizes, tpis[form],
-                          ops_per, bytes_per)
+        swp = sweep(f"K2 {form}", run, ref, sizes, tpi_variants(tpis[form]),
+                    ops_per, bytes_per)
         pick = build.add_tpi("proj_add", form, big)
         bms, bby = bound(big * ops_per, big * bytes_per)
-        k2 = {"pairs": big, "tpi": pick, "ms": sweep[big][f"tpi{pick}_ms"],
+        k2 = {"pairs": big, "tpi": pick, "ms": swp[big][f"tpi{pick}_ms"],
               "plain_ms": plain_ms, "plain_ms_3000": small_plain_ms,
               "bound_ms": bms, "bound_by": bby, "max_abs_err": err,
-              "sweep": list(sweep.values())}
+              "sweep": list(swp.values())}
         del a, b, got, ref
         log(f"[2c] K2 {form} ({curve} {'G2' if g2 else 'G1'}): every TPI "
             f"{tpis[form]} equal to plain on {B} edge-case pairs and at "
             f"{len(sizes)} sizes; {json.dumps(k2)} "
             f"({time.time() - t0:.1f}s)")
 
-        # [2d] K3 for k = 1, 6 and the wrapper's window c
+        # [2d] K3 for k = 1, 6 and the wrapper's window c, every TPI
         t0 = time.time()
-        err3 = 0
-        for k in (1, 6, c_wrap):
-            got = pc.proj_dbl_chain(F, lhs, k, b3)
-            ref = lhs
+
+        def plain3(x, k):
             for _ in range(k):
-                ref = ct.proj_dbl(F, ref, b3)
-            torch.cuda.synchronize()
-            err3 = max(err3, int((got.long() - ref.long()).abs().max()))
-            check(err3 == 0, f"K3 {form} k={k}: differs from plain")
+                x = ct.proj_dbl(F, x, b3)
+            return x
+
+        got = pc.proj_dbl_chain(F, lhs, c_wrap, b3)  # the table's pick
+        err3 = max_err(got, plain3(lhs, c_wrap))
+        check(err3 == 0, f"K3 {form}: differs from plain")
         check(crv.to_affine_host(got[:60])
               == [None if p is None else g.mul(1 << c_wrap, p)
                   for p in aff_l], f"K3 {form}: 2^c P differs from host")
-        # the Horner fold's launch: one point, k = c
-        one = lhs[:1].contiguous()
-        run = lambda: pc.proj_dbl_chain(F, one, c_wrap, b3)  # noqa: E731
-        run()
-        ms = cuda_ms(run, 20)
+        err3 = max(err3, dbl_check(
+            f"K3 {form}", lambda x, k, t: pc.proj_dbl_chain_tpi(
+                F, x, k, b3, t), plain3, lhs, (1, 6, c_wrap), tpis[form],
+            35))
+        log(f"[2d] K3 {form}: every TPI {tpis[form]} equal to plain for k = 1, 6, {c_wrap} on {B}, 1 and 35 points "
+            f"({time.time() - t0:.1f}s)")
+        # timed at the Horner fold's k on the batches of DBL_SWEEP_N
+        t0 = time.time()
+        nmax = max(DBL_SWEEP_N)
+        pts = base[torch.randint(0, D, (nmax,), device=dev,
+                                 generator=gen_)].contiguous()
+        ref = plain3(pts, c_wrap)
+        one = pts[:1]
         t_ref = time.time()
-        ref = one
-        for _ in range(c_wrap):
-            ref = ct.proj_dbl(F, ref, b3)
+        plain3(one, c_wrap)
         torch.cuda.synchronize()
         plain_ms = (time.time() - t_ref) * 1e3
-        bms, bby = bound(c_wrap * dbl_muls(F) * mul_ops(F),
-                         2 * 3 * words(F) * 4)
-        k3 = {"points": 1, "k": c_wrap, "ms": ms, "plain_ms": plain_ms,
-              "bound_ms": bms, "bound_by": bby, "max_abs_err": err3}
+        ops_per = c_wrap * dbl_muls(F) * mul_ops(F)
+        swp = sweep(f"K3 {form}", lambda n, t: pc.proj_dbl_chain_tpi(
+            F, pts[:n], c_wrap, b3, t), ref, DBL_SWEEP_N,
+            tpi_variants(tpis[form]), ops_per, 2 * 3 * words(F) * 4)
+        tpi = build.dbl_tpi("proj_dbl_chain", form, 1)
+        bms, bby = bound(ops_per, 2 * 3 * words(F) * 4)
+        k3 = {"points": 1, "k": c_wrap, "tpi": tpi,
+              "ms": swp[1][f"tpi{tpi}_ms"], "plain_ms": plain_ms,
+              "bound_ms": bms, "bound_by": bby, "max_abs_err": err3,
+              "sweep": list(swp.values())}
         stats[form] = {"proj_add": k2, "proj_dbl_chain": k3}
-        log(f"[2d] K3 {form}: equal to plain for k = 1, 6, {c_wrap} on {B} "
-            f"points; {json.dumps(k3)} ({time.time() - t0:.1f}s)")
+        log(f"[2d] K3 {form} timed: {json.dumps(k3)} "
+            f"({time.time() - t0:.1f}s)")
 
 
 # ---------------------------------------------------------------------------
@@ -736,18 +794,20 @@ def jac_phase(stats: dict, tpis: dict) -> None:
         check(crv.to_affine_host(got[:70])
               == [g.add(p, q) for p, q in zip(aff_l, aff_r)],
               f"K4 {form}: sums differ from the host curve")
-        err5 = 0
-        for k in (1, 3, c):
-            got5 = jc.jac_dbl_chain(F, lhs, k)
-            ref5 = lhs
+        def plain5(x, k):
             for _ in range(k):
-                ref5 = ct.jac_dbl(F, ref5)
-            torch.cuda.synchronize()
-            err5 = max(err5, int((got5.long() - ref5.long()).abs().max()))
-            check(err5 == 0, f"K5 {form} k={k}: differs from plain")
+                x = ct.jac_dbl(F, x)
+            return x
+
+        got5 = jc.jac_dbl_chain(F, lhs, c)  # the table's pick
+        err5 = max_err(got5, plain5(lhs, c))
+        check(err5 == 0, f"K5 {form}: differs from plain")
         check(crv.to_affine_host(got5[:70])
               == [None if p is None else g.mul(1 << c, p) for p in aff_l],
               f"K5 {form}: 2^c P differs from the host curve")
+        err5 = max(err5, dbl_check(
+            f"K5 {form}", lambda x, k, t: jc.jac_dbl_chain_tpi(
+                F, x, k, t), plain5, lhs, (1, 3, c), tpis[form], 48))
         # K6: O+P, P+O, O+O (nonzero x, y at infinity), P+P, P+(-P), P+Q
         inf_l = (kind == 0) | (kind == 2)
         inf_r = (kind == 1) | (kind == 2)
@@ -765,7 +825,8 @@ def jac_phase(stats: dict, tpis: dict) -> None:
               == [g.add(p, q) for p, q in zip(h_l, h_r)],
               f"K6 {form}: sums differ from the host curve")
         log(f"[2e] K4/K5/K6 {form} ({curve} {'G2' if g2 else 'G1'}): equal "
-            f"to plain on {B} crafted cases each (K5 k = 1, 3, {c}) "
+            f"to plain on {B} crafted cases each (K5 k = 1, 3, {c} in every "
+            f"TPI {tpis[form]}, also on 1 and 48 points) "
             f"({time.time() - t0:.1f}s)")
 
         # timed at the largest launch of the paths, on finite distinct
@@ -796,15 +857,15 @@ def jac_phase(stats: dict, tpis: dict) -> None:
         run = lambda n, t: jc.jac_add_tpi(  # noqa: E731
             F, p4[:n], q4[:n], t)
         sizes = sweep_sizes(form, big)
-        sweep = sweep_add(f"K4 {form}", run, ref, sizes, tpis[form],
-                          ops_per, bytes_per)
+        swp = sweep(f"K4 {form}", run, ref, sizes, tpi_variants(tpis[form]),
+                    ops_per, bytes_per)
         pick = build.add_tpi("jac_add", form, big)
         bms, bby = bound(big * ops_per, big * bytes_per)
         out["jac_add"] = {"lanes": big, "tpi": pick,
-                          "ms": sweep[big][f"tpi{pick}_ms"],
+                          "ms": swp[big][f"tpi{pick}_ms"],
                           "plain_ms": plain_ms, "bound_ms": bms,
                           "bound_by": bby, "max_abs_err": err4,
-                          "sweep": list(sweep.values())}
+                          "sweep": list(swp.values())}
         del ref
         xa, xb, fb = xy[ja[:big]], xy[jb[:big]], fin[:big]
         run = lambda: jc.aff_add(F, xa, fb, xb, fb)  # noqa: E731
@@ -822,23 +883,24 @@ def jac_phase(stats: dict, tpis: dict) -> None:
                           "bound_ms": bms, "bound_by": bby,
                           "max_abs_err": max(e, err6)}
         del got, ref
-        # the Horner fold's launch: one point, k = c
-        one = p4[:1].contiguous()
-        run = lambda: jc.jac_dbl_chain(F, one, c)  # noqa: E731
-        got = run()
-        ms = cuda_ms(run, 20)
+        # K5 at the Horner fold's k on the batches of DBL_SWEEP_N
+        pts = p4[:max(DBL_SWEEP_N)].contiguous()
+        ref = plain5(pts, c)
         t_ref = time.time()
-        ref = one
-        for _ in range(c):
-            ref = ct.jac_dbl(F, ref)
+        plain5(pts[:1], c)
         torch.cuda.synchronize()
         plain_ms = (time.time() - t_ref) * 1e3
-        check(torch.equal(got, ref), f"K5 {form}: Horner launch != plain")
-        bms, bby = bound(c * jac_muls(F, "dbl") * mul_ops(F),
-                         2 * 3 * W * 4)
-        out["jac_dbl_chain"] = {"points": 1, "k": c, "ms": ms,
+        ops_per = c * jac_muls(F, "dbl") * mul_ops(F)
+        swp = sweep(f"K5 {form}", lambda n, t: jc.jac_dbl_chain_tpi(
+            F, pts[:n], c, t), ref, DBL_SWEEP_N, tpi_variants(tpis[form]),
+            ops_per, 2 * 3 * W * 4)
+        tpi = build.dbl_tpi("jac_dbl_chain", form, 1)
+        bms, bby = bound(ops_per, 2 * 3 * W * 4)
+        out["jac_dbl_chain"] = {"points": 1, "k": c, "tpi": tpi,
+                                "ms": swp[1][f"tpi{tpi}_ms"],
                                 "plain_ms": plain_ms, "bound_ms": bms,
-                                "bound_by": bby, "max_abs_err": err5}
+                                "bound_by": bby, "max_abs_err": err5,
+                                "sweep": list(swp.values())}
         stats[form] = out
         log(f"[2e] K4/K5/K6 {form} timed: {json.dumps(out)} "
             f"({time.time() - t0:.1f}s)")
@@ -982,13 +1044,13 @@ def prove_phase() -> dict:
     profiles, hists = {}, {}
     reset_counts()
     timings = {}
-    with AddLaunches() as rec:
+    with Launches() as rec:
         wkp_dev, profiles["device setup"] = profiled(
             lambda: prover_j.generate_setup(r1cs, rng, timings=timings))
     setup_s = profiles["device setup"]["wall_s"]  # not the trace's reading
     counts["setup"] = read_counts()
     hists["device setup"] = rec.histogram(
-        profiles["device setup"]["add_us"])
+        profiles["device setup"]["launch_us"])
     check(keypair_fields(wkp_dev) == keypair_fields(wkp),
           "wrapper device setup != native setup from the same rng state")
     for name in ("jac_add", "aff_add"):
@@ -1027,10 +1089,10 @@ def prove_phase() -> dict:
             wep = go()
             prove_s = time.time() - t0
         else:
-            with AddLaunches() as rec:
+            with Launches() as rec:
                 wep, profiles[f"{run} prove"] = profiled(go)
             hists[f"{run} prove"] = rec.histogram(
-                profiles[f"{run} prove"]["add_us"])
+                profiles[f"{run} prove"]["launch_us"])
             prove_s = profiles[f"{run} prove"]["wall_s"]
         counts[run] = read_counts()
         phases = {k: round(v, 3) for k, v in dev_prover.last_timings.items()}
@@ -1175,7 +1237,7 @@ def main() -> int:
         f"jobs started together (budget 60s)")
     sass = sass_counts({stem: info["path"]
                         for stem, info in build.last_build.items()
-                        if stem.startswith("add_kernels")})
+                        if stem.startswith("fast_kernels")})
     for lib, counts in sorted(sass.items()):
         log(f"[1] SASS of {lib}: {json.dumps(counts)}")
 
@@ -1214,9 +1276,10 @@ def main() -> int:
         entry("bucket_reduce", "bucket_reduce.cu",
               "zecale_tpu/ec/msm4.py:543", main_level,
               max(s["max_abs_err"] for s in stats.values())),
-        entry("proj_add", "add_kernels.cu", "zecale_tpu/ec/ec_pallas.py:573",
+        entry("proj_add", "fast_kernels.cu",
+              "zecale_tpu/ec/ec_pallas.py:573",
               k2, max(p["proj_add"]["max_abs_err"] for p in pstats.values())),
-        entry("proj_dbl_chain", "proj_kernels.cu",
+        entry("proj_dbl_chain", "fast_kernels.cu",
               "zecale_tpu/ec/ec_pallas.py:596", k3,
               max(p["proj_dbl_chain"]["max_abs_err"]
                   for p in pstats.values())),
@@ -1224,8 +1287,8 @@ def main() -> int:
         entry(name, src, f"zecale_tpu/ec/ec_pallas.py:{line}",
               jstats["fq24"][name],
               max(j[name]["max_abs_err"] for j in jstats.values()))
-        for name, src, line in (("jac_add", "add_kernels.cu", 473),
-                                ("jac_dbl_chain", "jac_kernels.cu", 514),
+        for name, src, line in (("jac_add", "fast_kernels.cu", 473),
+                                ("jac_dbl_chain", "fast_kernels.cu", 514),
                                 ("aff_add", "jac_kernels.cu", 543))
     ]}
     for k in kernels["kernels"]:

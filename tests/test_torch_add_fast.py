@@ -1,11 +1,11 @@
 """The redesigned add kernels' field core and group laws
-(zecale_tpu_torch/csrc/field_fast.cuh, add_kernels.cu: K2 proj_add and K4
+(zecale_tpu_torch/csrc/field_fast.cuh, fast_kernels.cu: K2 proj_add and K4
 jac_add with TPI threads per point) and the wrappers' TPI table.
 
 Here, without a card: the CPU build of the fast core (csrc/host_check.cpp;
 every carry-chain instruction as its 64-bit equivalent, and with TPI > 1
-the lanes of a group as threads that exchange words in the order a warp's
-shuffles and ballots would) against the plain PyTorch field
+the lanes of a group as coroutines that exchange words in the order a
+warp's shuffles and ballots would) against the plain PyTorch field
 (ff/fp_torch.py, ff/fp2_torch.py) and group laws (ec/curve_torch.py), and
 against the host field oracle of the JAX package.  Field values cover 0, 1,
 p - 1, p - 2, the top bit of p, the largest canonical values of every
@@ -235,7 +235,7 @@ def test_add_tpi_table_covers_every_form_and_batch():
     at most two a form; the bounds rise to a last row for any batch; every
     n >= 1 gets a built variant."""
     assert set(build.ADD_TPI) == {"proj_add", "jac_add"}
-    variants = build.KERNELS["add_kernels.cu"]["variants"]
+    variants = build.KERNELS["fast_kernels.cu"]["variants"]
     assert set(build.ADD_TPIS) == set(build.FORMS) == set(FORMS)
     for form, tpis in build.ADD_TPIS.items():
         assert 1 <= len(tpis) <= 2

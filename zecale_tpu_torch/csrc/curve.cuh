@@ -1,21 +1,26 @@
 // Group laws for short Weierstrass curves with a = 0, written once over a
-// field type Fld -- Fq<12>, Fq<24> (field.cuh) or Fq2 (field2.cuh), and
-// the fast core's FqF / Fq2F (field_fast.cuh) for K2 and K4:
+// field type Fld -- Fq<12>, Fq<24> (field.cuh) or Fq2 (field2.cuh) for K1
+// and K6, and the fast core's FqF / Fq2F (field_fast.cuh) for K2-K5:
 //
 //   * the complete projective law (Renes-Costello-Batina 2016, algorithms
 //     7, 8 and 9), shared by the bucket reduce (K1) and the msm8 kernels
-//     (K2 proj_add in add_kernels.cu, K3 proj_dbl_chain).  Plain PyTorch
+//     (K2 proj_add, K3 proj_dbl_chain in fast_kernels.cu).  Plain PyTorch
 //     twins: ec/curve_torch.py (proj_add, proj_add_mixed, proj_dbl) and
 //     ec/msm.py (bucket_reduce_ref).  b3 = 3b is Fld::B3: a small signed
 //     integer over Fq (3 BLS12-377 G1, -3 BW6-761 G1, 12 BW6-761 G2) or the
 //     Fq2 constant (0, -3/5) of the BLS12-377 G2 twist;
 //   * the unified Jacobian law of the JAX package's JacCurve, shared by K4
-//     jac_add (add_kernels.cu), K5 jac_dbl_chain and K6 aff_add
+//     jac_add, K5 jac_dbl_chain (fast_kernels.cu) and K6 aff_add
 //     (jac_kernels.cu).  Plain PyTorch twins: ec/curve_torch.py (jac_add,
 //     jac_dbl, aff_add).  It needs no curve constant.
+//
+// The doublings also have a form with the products of each step side by
+// side (proj_dbl_side, jac_dbl_side: field_fast.cuh mul_side_by_side), for
+// a warp that owns one point: K3 and K5 run it.
 #pragma once
 #include "field.cuh"
 #include "field2.cuh"
+#include "field_fast.cuh"
 
 template <class Fld>
 struct Proj {
@@ -163,6 +168,58 @@ ZT_HD void proj_dbl(Proj<Fld>& r, const Proj<Fld>& p,
   Fld::copy(r.z, z3);
 }
 
+// r = b3 a, by every group alone where b3 is a small integer (additions),
+// as products side by side where it is an Fq2 constant
+template <class Fld>
+ZT_HD void mul_b3_side(uint32_t* r, const uint32_t* a,
+                       const typename Fld::B3& b3,
+                       const typename Fld::Params& F) {
+  if constexpr (Fld::kParts == 1) {
+    Fld::mul_b3(r, a, b3, F);
+  } else {
+    uint32_t* const rs[1] = {r};
+    const uint32_t* const as[1] = {a};
+    const uint32_t* const bs[1] = {b3.c};
+    mul_side_by_side<Fld, 1>(rs, as, bs, F);
+  }
+}
+
+// proj_dbl's values with its products side by side, one warp a point
+// (K3): Y^2, YZ, Z^2 and XY; then b3 Z^2; then b3 Z^2 8Y^2,
+// YZ 8Y^2, (Y^2 - 3 b3 Z^2)(Y^2 + b3 Z^2) and (Y^2 - 3 b3 Z^2) XY.
+// r may alias p.
+template <class Fld>
+ZT_HD void proj_dbl_side(Proj<Fld>& r, const Proj<Fld>& p,
+                         const typename Fld::B3& b3,
+                         const typename Fld::Params& F) {
+  constexpr int W = Fld::W;
+  uint32_t t0[W], t1[W], t2[W], xy[W], z8[W], u[W], v[W];
+  uint32_t x3[W], y3[W], z3[W], w[W];
+  {
+    uint32_t* const rs[4] = {t0, t1, t2, xy};
+    const uint32_t* const as[4] = {p.y, p.y, p.z, p.x};
+    const uint32_t* const bs[4] = {p.y, p.z, p.z, p.y};
+    mul_side_by_side<Fld, 4>(rs, as, bs, F);
+  }
+  Fld::add(z8, t0, t0, F);
+  Fld::add(z8, z8, z8, F);
+  Fld::add(z8, z8, z8, F);  // 8 Y^2
+  mul_b3_side<Fld>(t2, t2, b3, F);
+  Fld::add(v, t0, t2, F);   // Y^2 + b3 Z^2
+  Fld::add(u, t2, t2, F);
+  Fld::add(u, u, t2, F);
+  Fld::sub(u, t0, u, F);    // Y^2 - 3 b3 Z^2
+  {
+    uint32_t* const rs[4] = {x3, z3, y3, w};
+    const uint32_t* const as[4] = {t2, t1, u, u};
+    const uint32_t* const bs[4] = {z8, z8, v, xy};
+    mul_side_by_side<Fld, 4>(rs, as, bs, F);
+  }
+  Fld::add(r.y, x3, y3, F);
+  Fld::add(r.x, w, w, F);
+  Fld::copy(r.z, z3);
+}
+
 // ---------------------------------------------------------------------------
 // The unified Jacobian law (x = X/Z^2, y = Y/Z^3; Z = 0 is infinity) of
 // ec/curve_jax.py:JacCurve and the Pallas bodies ec/ec_pallas.py
@@ -206,6 +263,48 @@ ZT_HD void jac_dbl(Jac<Fld>& r, const Jac<Fld>& p,
   Fld::add(c, c, c, F);
   Fld::add(c, c, c, F);
   Fld::sub(r.y, d, c, F);    // Y3 = E(D - X3) - 8C
+}
+
+// jac_dbl's values with its products side by side, one warp a point (K5): X^2, Y^2 and YZ; then B^2, (X + B)^2 and E^2; then
+// E(D - X3).  r may alias p.
+template <class Fld>
+ZT_HD void jac_dbl_side(Jac<Fld>& r, const Jac<Fld>& p,
+                        const typename Fld::Params& F) {
+  constexpr int W = Fld::W;
+  uint32_t a[W], b[W], c[W], d[W], e[W], t[W], z3[W];
+  {
+    uint32_t* const rs[3] = {a, b, t};
+    const uint32_t* const as[3] = {p.x, p.y, p.y};
+    const uint32_t* const bs[3] = {p.x, p.y, p.z};
+    mul_side_by_side<Fld, 3>(rs, as, bs, F);
+  }
+  Fld::add(d, p.x, b, F);
+  Fld::add(z3, t, t, F);     // Z3 = 2 Y Z
+  Fld::add(e, a, a, F);
+  Fld::add(e, e, a, F);      // E = 3A
+  {
+    uint32_t* const rs[3] = {c, d, t};
+    const uint32_t* const as[3] = {b, d, e};
+    const uint32_t* const bs[3] = {b, d, e};
+    mul_side_by_side<Fld, 3>(rs, as, bs, F);  // C = B^2, (X + B)^2, E^2
+  }
+  Fld::sub(d, d, a, F);
+  Fld::sub(d, d, c, F);
+  Fld::add(d, d, d, F);      // D = 2((X + B)^2 - A - C)
+  Fld::sub(t, t, d, F);
+  Fld::sub(r.x, t, d, F);    // X3 = E^2 - 2D
+  Fld::sub(d, d, r.x, F);
+  {
+    uint32_t* const rs[1] = {d};
+    const uint32_t* const as[1] = {e};
+    const uint32_t* const bs[1] = {d};
+    mul_side_by_side<Fld, 1>(rs, as, bs, F);
+  }
+  Fld::add(c, c, c, F);
+  Fld::add(c, c, c, F);
+  Fld::add(c, c, c, F);
+  Fld::sub(r.y, d, c, F);    // Y3 = E(D - X3) - 8C
+  Fld::copy(r.z, z3);
 }
 
 // r = c ? a : b, word by word; r may alias a or b

@@ -1,16 +1,22 @@
-// K2 and K4 on the fast field core (field_fast.cuh), TPI threads per point:
+// The kernels on the fast field core (field_fast.cuh), TPI threads per
+// point (K2, K4) or one warp a point (K3, K5):
 //
-//   K2 zt_proj_add: out[i] = p[i] + q[i], the complete RCB add (curve.cuh
-//                   proj_add), canonical outputs;
-//   K4 zt_jac_add:  out[i] = p[i] + q[i], the unified Jacobian add
-//                   (curve.cuh jac_add), canonical outputs, the reference's
-//                   triple in every case.
+//   K2 zt_proj_add:       out[i] = p[i] + q[i], the complete RCB add
+//                         (curve.cuh proj_add), canonical outputs;
+//   K3 zt_proj_dbl_chain: out[i] = 2^k p[i], k complete RCB doublings
+//                         (curve.cuh proj_dbl_side);
+//   K4 zt_jac_add:        out[i] = p[i] + q[i], the unified Jacobian add
+//                         (curve.cuh jac_add), canonical outputs, the
+//                         reference's triple in every case;
+//   K5 zt_jac_dbl_chain:  out[i] = 2^k p[i], k doublings dbl-2009-l
+//                         (curve.cuh jac_dbl_side).
 //
-// Replace zecale_tpu/ec/ec_pallas.py:_KernelFamily.proj_add (573-594) and
-// _KernelFamily.jac_add (473-493).  The TPU kernels transposed a block of
-// points into (ew, bt) limb planes so that the VPU's lanes ran across
-// points.  Here a group of TPI neighbouring threads owns one point: each
-// holds a slice of every coordinate and the group law runs in registers.
+// Replace zecale_tpu/ec/ec_pallas.py:_KernelFamily.proj_add (573-594),
+// proj_dbl_chain (596-619), jac_add (473-493) and jac_dbl (495) /
+// jac_dbl_chain (514-541).  The TPU kernels transposed a block of points
+// into (ew, bt) limb planes so that the VPU's lanes ran across points.
+// Here a group of TPI neighbouring threads owns one point: each holds a
+// slice of every coordinate and the group law runs in registers.
 //
 // Bound: operations.  An add is 12 Montgomery products plus two b3
 // multiplies (K2) or 16 products (K4, 11M + 5S); over Fq2 each product is
@@ -19,7 +25,8 @@
 // 9 x 4N bytes of traffic per point: far below the card's memory rate.
 //
 // What held the per-thread kernels of field.cuh (one thread a point, ~21-23%
-// of the operations bound at Fq 24) and what this design does about it:
+// of the operations bound at Fq 24; ~70 us a 24-limb doubling) and what
+// this design does about it:
 //   1. 64-bit emulation: fp_mul computed (uint64_t)a*b + t + c, ~5
 //      instructions a 32x32 product.  Here every product is a mad.lo /
 //      madc.hi pair on a carry chain, even and odd limbs on two chains.
@@ -46,8 +53,28 @@
 // form and batch size from a table measured on the card
 // (utils/build.py:ADD_TPI).
 //
+// The doubling chains (K3, K5) are the MSMs' Horner folds: k doublings of
+// one point, each a chain of dependent products (K3: 8 and a b3 multiply
+// of small constant, K5: 7; three base products each over Fq2).  Bound:
+// operations, a few hundred thousand multiply-adds a launch, far below
+// a microsecond of the card; on one point the time is the chain's
+// latency.  So one warp owns a point and runs its products side by side:
+// the 32 / TPI groups of the warp each hold the point and compute one
+// independent product of a step (curve.cuh proj_dbl_side, jac_dbl_side;
+// field_fast.cuh mul_side_by_side), then pass the results round by
+// whole-warp shuffles.  K3's 8 products become 2 steps plus b3 and K5's 7
+// become 3 where the warp has four groups or more (TPI <= 8); over Fq2
+// the three base products of each Fq2 product are the units spread over
+// the groups.  The point stays in registers across the k doublings.  The
+// wrappers pick TPI by kernel and form from a table measured on the card
+// (utils/build.py:DBL_TPI).  A group of TPI lanes a point running the
+// products one after another (proj_dbl, jac_dbl over the fast core) was
+// slower at every batch the paths send (PERF.md section 6).
+// No thread leaves early: the tail repeats the last point and does not
+// store it, and only group 0 of a warp stores.
+//
 // One source, built per (form, TPI): -DZT_LIMBS=12 (BLS12-377 Fq) or 24
-// (BW6-761 Fq) or -DZT_FQ2=1 (BLS12-377 Fq2), and -DZT_TPI=1|2|4|8.  Both
+// (BW6-761 Fq) or -DZT_FQ2=1 (BLS12-377 Fq2), and -DZT_TPI=1|2|4|8.  The
 // launchers take no field constants and return the CUDA error code of the
 // launch (0 on success).
 #include <cuda_runtime.h>
@@ -61,10 +88,9 @@
 #endif
 
 // Uniform: the shuffles and votes of the field ops name the whole warp,
-// which then runs one path: K2's law has no branch on the data, and K4
-// over lanes takes jac_add_warp (curve.cuh), which selects its case at the
-// end.  At one thread a point there are no shuffles, and K4 keeps the
-// branches of jac_add.
+// which then runs one path: K2, K3 and K5 have no branch on the data, and
+// K4 over lanes takes jac_add_warp (curve.cuh), which selects its case at
+// the end.  At one thread a point K4 keeps the branches of jac_add.
 #if defined(ZT_FQ2)
 template <bool Uniform>
 using AddField = Fq2F<ZT_TPI, Uniform>;
@@ -123,8 +149,45 @@ __global__ void __launch_bounds__(kThreads)
   if (g < n) proj_store<Fld>(out + row, a);
 }
 
-int blocks_for(int n) {
-  return (int)(((long long)n * ZT_TPI + kThreads - 1) / kThreads);
+// K3 and K5: 2^k p[i], one warp a point, the products of each step side
+// by side
+__device__ __forceinline__ long long warp_of() {
+  return ((long long)blockIdx.x * blockDim.x + threadIdx.x) / 32;
+}
+
+template <class Fld>
+__global__ void __launch_bounds__(kThreads)
+    proj_dbl_chain_kernel(const uint32_t* __restrict__ p,
+                          uint32_t* __restrict__ out, int n, int k,
+                          typename Fld::B3Arg b3) {
+  const long long g = warp_of();
+  const typename Fld::Params F = Fld::params();
+  const typename Fld::B3 B = Fld::b3_lane(b3);
+  const size_t row = (size_t)(g < n ? g : n - 1) * 3 * Fld::ROW;
+  Proj<Fld> a;
+  proj_load<Fld>(a, p + row);
+#pragma unroll 1
+  for (int j = 0; j < k; ++j) proj_dbl_side<Fld>(a, a, B, F);
+  if (g < n && Fld::Lane::group() == 0) proj_store<Fld>(out + row, a);
+}
+
+template <class Fld>
+__global__ void __launch_bounds__(kThreads)
+    jac_dbl_chain_kernel(const uint32_t* __restrict__ p,
+                         uint32_t* __restrict__ out, int n, int k) {
+  const long long g = warp_of();
+  const typename Fld::Params F = Fld::params();
+  const size_t row = (size_t)(g < n ? g : n - 1) * 3 * Fld::ROW;
+  Jac<Fld> a;
+  proj_load<Fld>(a, p + row);
+#pragma unroll 1
+  for (int j = 0; j < k; ++j) jac_dbl_side<Fld>(a, a, F);
+  if (g < n && Fld::Lane::group() == 0) proj_store<Fld>(out + row, a);
+}
+
+// blocks for n points at ``per`` threads a point
+int blocks_for(int n, int per = ZT_TPI) {
+  return (int)(((long long)n * per + kThreads - 1) / kThreads);
 }
 
 }  // namespace
@@ -150,5 +213,27 @@ extern "C" int zt_jac_add(const void* p, const void* q, void* out, int n,
       <<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const uint32_t*>(p), static_cast<const uint32_t*>(q),
           static_cast<uint32_t*>(out), n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int zt_proj_dbl_chain(const void* p, void* out, int n, int k,
+                                 const void* b3, void* stream) {
+  if (n <= 0 || k <= 0) return 0;
+  using Fld = AddField<true>;
+  typename Fld::B3Arg b3v;
+  memcpy(&b3v, b3, sizeof(b3v));
+  proj_dbl_chain_kernel<Fld>
+      <<<blocks_for(n, 32), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const uint32_t*>(p), static_cast<uint32_t*>(out), n, k,
+          b3v);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int zt_jac_dbl_chain(const void* p, void* out, int n, int k,
+                                void* stream) {
+  if (n <= 0 || k <= 0) return 0;
+  jac_dbl_chain_kernel<AddField<true>>
+      <<<blocks_for(n, 32), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const uint32_t*>(p), static_cast<uint32_t*>(out), n, k);
   return (int)cudaGetLastError();
 }

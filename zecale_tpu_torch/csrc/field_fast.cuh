@@ -1,7 +1,8 @@
-// The Montgomery field core of the redesigned add kernels (add_kernels.cu:
-// K2 proj_add, K4 jac_add): FqF<M, TPI, Uniform> over a modulus M fixed at
-// compile time, and Fq2F<TPI, Uniform> over it.  The other kernels (K1,
-// K3, K5, K6) stay on field.cuh's Fq<N> and field2.cuh's Fq2.
+// The Montgomery field core of the kernels in fast_kernels.cu (K2
+// proj_add, K3 proj_dbl_chain, K4 jac_add, K5 jac_dbl_chain):
+// FqF<M, TPI, Uniform> over a modulus M fixed at compile time, and
+// Fq2F<TPI, Uniform> over it.  The other kernels (K1, K6) stay on
+// field.cuh's Fq<N> and field2.cuh's Fq2.
 //
 //   * The moduli are compile-time constants (Bls377Fq, Bw6Fq below): every
 //     limb of p is an immediate of the instruction that uses it, and no
@@ -34,8 +35,13 @@
 //     take the same branch of the group law.  With Uniform, shuffles and
 //     votes name the whole warp (plain SHFL and VOTE; the group's mask
 //     costs a convergence region each), and any / all vote across it.
-//     Under g++, host_check.cpp runs the TPI lanes of a group as TPI
-//     threads that exchange words through a barrier.
+//   * Products side by side (mul_side_by_side, at the end): the 32 / TPI
+//     groups of a warp that all hold one point each compute one of the
+//     independent products of a step of the group law, and whole-warp
+//     shuffles hand every result to every group.
+//   * Under g++, host_check.cpp runs the lanes of a warp (one group, or
+//     all 32 lanes for products side by side) as coroutines of one thread
+//     that exchange words in the order a warp's shuffles and ballots would.
 //
 // Every function takes and returns canonical values in [0, p); p < 2^(32N
 // - 6) in both fields, so sums never leave N words.
@@ -252,14 +258,16 @@ ZT_HD uint32_t mul_hi(uint32_t a, uint32_t b) {
 // ---------------------------------------------------------------------------
 // The lanes of a group of TPI threads.  On the device: the TPI neighbouring
 // lanes of a warp (TPI divides 32, the block size is a multiple of 32).
-// Under g++: host_check.cpp runs each lane as a thread and installs
-// zt_lane_emu, whose exchange() deposits this lane's word and returns every
-// lane's word of the same call.  Under nvcc's host pass these paths are
-// never taken.
+// Under g++: host_check.cpp runs the ``width`` lanes of an emulated warp
+// (one group, or 32 lanes) and installs zt_lane_emu: ``lane`` is this
+// lane's index in the warp, and exchange() deposits its word and returns
+// every lane's word of the same call.  Under nvcc's host pass these paths
+// are never taken.
 
 #if !defined(__CUDACC__)
 struct ZtLaneEmu {
   int lane = 0;
+  int width = 1;
   void* ctx = nullptr;
   void (*exchange)(void* ctx, int lane, uint32_t v, uint32_t* all) = nullptr;
 };
@@ -284,7 +292,18 @@ struct Lanes {
 #elif defined(__CUDACC__)
     return 0;
 #else
-    return zt_lane_emu.lane;
+    return zt_lane_emu.lane & (TPI - 1);
+#endif
+  }
+
+  // this group's index in the warp
+  ZT_HD static int group() {
+#if defined(__CUDA_ARCH__)
+    return (threadIdx.x & 31) / TPI;
+#elif defined(__CUDACC__)
+    return 0;
+#else
+    return zt_lane_emu.lane / TPI;
 #endif
   }
 
@@ -296,9 +315,11 @@ struct Lanes {
     return Uniform ? 0xffffffffu : kBits << base();
   }
 #elif !defined(__CUDACC__)
+  // out[i]: the word of lane i of the emulated warp, for i < width
   static void exchange(uint32_t v, uint32_t* out) {
     zt_lane_emu.exchange(zt_lane_emu.ctx, zt_lane_emu.lane, v, out);
   }
+  static int base() { return zt_lane_emu.lane & ~(TPI - 1); }
 #endif
 
   // the word of lane src of the group
@@ -309,7 +330,21 @@ struct Lanes {
 #elif defined(__CUDACC__)
     return v;
 #else
-    uint32_t w[TPI];
+    uint32_t w[32];
+    exchange(v, w);
+    return w[base() + src];
+#endif
+  }
+
+  // the word of lane src of the warp (Uniform): from one group to another
+  ZT_HD static uint32_t shfl_warp(uint32_t v, int src) {
+    static_assert(Uniform, "a whole-warp shuffle needs the whole warp");
+#if defined(__CUDA_ARCH__)
+    return __shfl_sync(0xffffffffu, v, src);
+#elif defined(__CUDACC__)
+    return v;
+#else
+    uint32_t w[32];
     exchange(v, w);
     return w[src];
 #endif
@@ -324,9 +359,9 @@ struct Lanes {
 #elif defined(__CUDACC__)
     return v;
 #else
-    uint32_t w[TPI];
+    uint32_t w[32];
     exchange(v, w);
-    return lane() == TPI - 1 ? 0u : w[lane() + 1];
+    return lane() == TPI - 1 ? 0u : w[base() + lane() + 1];
 #endif
   }
 
@@ -339,9 +374,9 @@ struct Lanes {
 #elif defined(__CUDACC__)
     return v;
 #else
-    uint32_t w[TPI];
+    uint32_t w[32];
     exchange(v, w);
-    return lane() == 0 ? 0u : w[lane() - 1];
+    return lane() == 0 ? 0u : w[base() + lane() - 1];
 #endif
   }
 
@@ -353,9 +388,9 @@ struct Lanes {
 #elif defined(__CUDACC__)
     return f;
 #else
-    uint32_t w[TPI], bits = 0;
+    uint32_t w[32], bits = 0;
     exchange(f, w);
-    for (int i = 0; i < TPI; ++i) bits |= (w[i] != 0) << i;
+    for (int i = 0; i < TPI; ++i) bits |= (w[base() + i] != 0) << i;
     return bits;
 #endif
   }
@@ -366,6 +401,8 @@ struct Lanes {
     if constexpr (TPI == 1 && !Uniform) return f;
 #if defined(__CUDA_ARCH__)
     if constexpr (Uniform) return __any_sync(0xffffffffu, f);
+#elif !defined(__CUDACC__)
+    if constexpr (Uniform) return warp_votes(f) != 0;
 #endif
     return ballot(f) != 0;
   }
@@ -373,9 +410,21 @@ struct Lanes {
     if constexpr (TPI == 1 && !Uniform) return f;
 #if defined(__CUDA_ARCH__)
     if constexpr (Uniform) return __all_sync(0xffffffffu, f);
+#elif !defined(__CUDACC__)
+    if constexpr (Uniform) return warp_votes(f) == zt_lane_emu.width;
 #endif
     return ballot(f) == kBits;
   }
+#if !defined(__CUDACC__)
+  // the number of lanes of the emulated warp whose flag holds
+  static int warp_votes(bool f) {
+    uint32_t w[32];
+    exchange(f, w);
+    int n = 0;
+    for (int i = 0; i < zt_lane_emu.width; ++i) n += w[i] != 0;
+    return n;
+  }
+#endif
 
   // Carries between lanes.  Each lane has added (or subtracted) its slice
   // and reports gen (a carry or borrow left its top word) and prop (its
@@ -644,6 +693,9 @@ struct FqF {
   using B3 = int;
   using B3Arg = int;
   using Lane = Lanes<TPI, Uniform>;
+  using Base = FqF;
+  // base products of one product (mul_side_by_side)
+  static constexpr int kParts = 1;
   // this lane's slice of p (TPI > 1; with one lane p is all immediates)
   struct Params {
     uint32_t p[TPI > 1 ? L : 1];
@@ -836,6 +888,18 @@ struct FqF {
                            const Params& F) {
     mul_small(r, a, b3, F);
   }
+
+  // mul_side_by_side: the operands of base product j of a b, and r from
+  // the base products t (here one product, a b itself)
+  ZT_HD static void part(uint32_t* x, uint32_t* y, const uint32_t* a,
+                         const uint32_t* b, int, const Params&) {
+    copy(x, a);
+    copy(y, b);
+  }
+  ZT_HD static void join(uint32_t* r, const uint32_t (*t)[L],
+                         const Params&) {
+    copy(r, t[0]);
+  }
 };
 
 // Fq2 = Fq[u] / (u^2 - nr) over the BLS12-377 base field, nr = -5, as
@@ -854,6 +918,7 @@ struct Fq2F {
   static constexpr int kNr = -5;
   using Params = typename Base::Params;
   using Lane = Lanes<TPI, Uniform>;
+  static constexpr int kParts = 3;
   // b3 of the D-twist: this lane's slice; the launcher passes all of it
   struct B3 {
     uint32_t c[W];
@@ -931,4 +996,80 @@ struct Fq2F {
                            const Params& F) {
     mul(r, a, b3.c, F);
   }
+
+  // mul_side_by_side: Karatsuba's three base products of a b (a0 b0, a1
+  // b1, (a0 + a1)(b0 + b1)) and the product from them, the values of mul
+  ZT_HD static void part(uint32_t* x, uint32_t* y, const uint32_t* a,
+                         const uint32_t* b, int j, const Params& F) {
+    if (j == 2) {
+      Base::add(x, a, a + L, F);
+      Base::add(y, b, b + L, F);
+    } else {
+      Base::copy(x, a + j * L);
+      Base::copy(y, b + j * L);
+    }
+  }
+  ZT_HD static void join(uint32_t* r, const uint32_t (*t)[L],
+                         const Params& F) {
+    uint32_t s[L], u[L];
+    Base::sub(s, t[2], t[0], F);
+    Base::sub(r + L, s, t[1], F);
+    Base::mul_small(u, t[1], kNr, F);
+    Base::add(r, t[0], u, F);
+  }
 };
+
+// ---------------------------------------------------------------------------
+// Products side by side: r[i] = a[i] b[i] for i < P over the field type Fld
+// (FqF or Fq2F, Uniform), where every lane of the warp holds its slice of
+// the same operands (one point a warp).  The P products are Q = P kParts
+// base products; the warp's G = 32 / TPI groups take them G at a time:
+// in round s group g computes base product s G + g (the groups past Q
+// repeat the round's first), its operands picked by selects on g, so that
+// the warp runs one instruction stream and every shuffle names it whole.
+// Then lane l of every group takes each result of the round from lane l
+// of the group that computed it, one whole-warp shuffle per word, and
+// every group forms the P products from them.  A single base product
+// (Q = 1) is computed by every group and needs no shuffle.  r may alias a
+// or b: it is written after the last read.
+template <class Fld, int P>
+ZT_HD void mul_side_by_side(uint32_t* const* r, const uint32_t* const* a,
+                            const uint32_t* const* b,
+                            const typename Fld::Params& F) {
+  using Base = typename Fld::Base;
+  using Lane = typename Fld::Lane;
+  constexpr int L = Base::L, K = Fld::kParts, Q = P * K;
+  constexpr int TPI = Fld::kTpi, G = 32 / TPI;
+  static_assert(Fld::kUniform, "products side by side need the whole warp");
+  if constexpr (Q == 1) {
+    Fld::mul(r[0], a[0], b[0], F);
+    return;
+  }
+  uint32_t x[Q][L], y[Q][L], t[Q][L];
+#pragma unroll
+  for (int q = 0; q < Q; ++q)
+    Fld::part(x[q], y[q], a[q / K], b[q / K], q % K, F);
+  const int g = Lane::group(), l = Lane::lane();
+#pragma unroll
+  for (int s = 0; s < Q; s += G) {
+    uint32_t u[L], v[L], w[L];
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+      u[j] = x[s][j];
+      v[j] = y[s][j];
+#pragma unroll
+      for (int q = s + 1; q < s + G && q < Q; ++q) {
+        u[j] = g == q - s ? x[q][j] : u[j];
+        v[j] = g == q - s ? y[q][j] : v[j];
+      }
+    }
+    Base::mul(w, u, v, F);
+#pragma unroll
+    for (int q = s; q < s + G && q < Q; ++q)
+#pragma unroll
+      for (int j = 0; j < L; ++j)
+        t[q][j] = Lane::shfl_warp(w[j], (q - s) * TPI + l);
+  }
+#pragma unroll
+  for (int i = 0; i < P; ++i) Fld::join(r[i], t + i * K, F);
+}

@@ -7,13 +7,12 @@
 // Fq<12> / Fq<24> (or FqF over BLS12-377 / BW6-761 Fq), 2 is Fq2 over 12
 // limbs (or Fq2F).  ``b3`` points to the kernel's b3 bytes (an int32 over
 // Fq, 2 x 12 Montgomery limbs over Fq2).  The fast core's entries take
-// ``tpi`` too: with TPI > 1 the TPI lanes of a group run as TPI threads
-// that exchange words through a barrier, in the order a warp's shuffles
-// and ballots would.
+// ``tpi`` too: with TPI > 1 the TPI lanes of a group, and for K3 and K5
+// the 32 lanes of a warp, run as coroutines of one thread
+// that exchange words in the order a warp's shuffles and ballots would.
 #include <string.h>
+#include <ucontext.h>
 
-#include <atomic>
-#include <thread>
 #include <type_traits>
 #include <vector>
 
@@ -42,21 +41,16 @@ void reduce_batch(int affine, const uint32_t* pts, const int32_t* ent,
   }
 }
 
-// k == 0: out = p + q (K2); k > 0: out = 2^k p (K3)
+// out = p + q, curve.cuh proj_add over field.cuh's types (K1's body)
 template <class Fld>
 void proj_batch(const uint32_t* p, const uint32_t* q, uint32_t* out, long n,
-                int k, const typename Fld::B3& b3,
-                const typename Fld::Params& F) {
+                const typename Fld::B3& b3, const typename Fld::Params& F) {
   for (long i = 0; i < n; ++i) {
     const size_t row = (size_t)i * 3 * Fld::W;
     Proj<Fld> a, b;
     proj_load<Fld>(a, p + row);
-    if (k == 0) {
-      proj_load<Fld>(b, q + row);
-      proj_add<Fld>(a, a, b, b3, F);
-    } else {
-      for (int j = 0; j < k; ++j) proj_dbl<Fld>(a, a, b3, F);
-    }
+    proj_load<Fld>(b, q + row);
+    proj_add<Fld>(a, a, b, b3, F);
     proj_store<Fld>(out + row, a);
   }
 }
@@ -109,55 +103,70 @@ int dispatch(int form, Fn&& fn) {
 
 // -- the fast core ---------------------------------------------------------
 
-// The lanes of one group: a barrier, and two banks of slots used in turn,
-// so that a lane may deposit its next word while the others still read the
-// last exchange's.
-struct LaneGroup {
-  int tpi;
-  std::atomic<int> arrived{0};
-  std::atomic<unsigned> gen{0};
-  uint32_t slots[2][8] = {};
-  unsigned calls[8] = {};
+// The lanes of one emulated warp as coroutines of this thread.  The
+// scheduler resumes them in turn; each runs to its next exchange, deposits
+// its word and yields, so a lane resumed has every lane's word of its
+// exchange.  Two banks of slots, used in turn, keep the words of one
+// exchange until the last lane has read them: lane 0 deposits its next
+// word while lanes above it have still to read.  Every lane makes the
+// same exchanges (the kernels run one path a warp).
+struct LaneSet {
+  static constexpr size_t kStack = 256 << 10;
+  int width;
+  uint32_t slots[2][32] = {};
+  unsigned calls[32] = {};
+  bool done[32] = {};
+  ucontext_t sched, ctx[32];
+  void (*call)(void*) = nullptr;
+  void* body = nullptr;
 
-  explicit LaneGroup(int t) : tpi(t) {}
-
-  void barrier() {
-    const unsigned g = gen.load(std::memory_order_acquire);
-    if (arrived.fetch_add(1, std::memory_order_acq_rel) + 1 == tpi) {
-      arrived.store(0, std::memory_order_relaxed);
-      gen.fetch_add(1, std::memory_order_release);
-    } else {
-      while (gen.load(std::memory_order_acquire) == g)
-        std::this_thread::yield();
-    }
+  static void exchange(void* c, int lane, uint32_t v, uint32_t* all) {
+    LaneSet& S = *static_cast<LaneSet*>(c);
+    uint32_t* slot = S.slots[S.calls[lane]++ & 1];
+    slot[lane] = v;
+    swapcontext(&S.ctx[lane], &S.sched);
+    for (int i = 0; i < S.width; ++i) all[i] = slot[i];
   }
 
-  static void exchange(void* ctx, int lane, uint32_t v, uint32_t* all) {
-    LaneGroup& G = *static_cast<LaneGroup*>(ctx);
-    uint32_t* s = G.slots[G.calls[lane]++ & 1];
-    s[lane] = v;
-    G.barrier();
-    for (int i = 0; i < G.tpi; ++i) all[i] = s[i];
+  static void entry() {
+    LaneSet& S = *static_cast<LaneSet*>(zt_lane_emu.ctx);
+    const int lane = zt_lane_emu.lane;
+    S.call(S.body);
+    S.done[lane] = true;
   }
 };
 
-// body() once per lane of a group of Fld::kTpi lanes
-template <class Fld, class Fn>
-void run_lanes(Fn body) {
-  constexpr int T = Fld::kTpi;
-  if constexpr (T == 1) {
+// the one lane of a width-1 warp
+void exchange_alone(void*, int, uint32_t v, uint32_t* all) { all[0] = v; }
+
+// body() once per lane of a warp of ``width`` lanes (1, TPI or 32)
+template <class Fn>
+void run_lanes(int width, Fn body) {
+  if (width == 1) {
+    zt_lane_emu = ZtLaneEmu{0, 1, nullptr, &exchange_alone};
     body();
-  } else {
-    LaneGroup G(T);
-    std::vector<std::thread> th;
-    for (int l = 0; l < T; ++l)
-      th.emplace_back([&G, &body, l] {
-        zt_lane_emu.lane = l;
-        zt_lane_emu.ctx = &G;
-        zt_lane_emu.exchange = &LaneGroup::exchange;
-        body();
-      });
-    for (auto& t : th) t.join();
+    return;
+  }
+  LaneSet S;
+  S.width = width;
+  S.body = &body;
+  S.call = [](void* f) { (*static_cast<Fn*>(f))(); };
+  std::vector<char> stacks((size_t)width * LaneSet::kStack);
+  for (int l = 0; l < width; ++l) {
+    getcontext(&S.ctx[l]);
+    S.ctx[l].uc_stack.ss_sp = stacks.data() + (size_t)l * LaneSet::kStack;
+    S.ctx[l].uc_stack.ss_size = LaneSet::kStack;
+    S.ctx[l].uc_link = &S.sched;
+    makecontext(&S.ctx[l], &LaneSet::entry, 0);
+  }
+  for (int live = width; live > 0;) {
+    live = 0;
+    for (int l = 0; l < width; ++l) {
+      if (S.done[l]) continue;
+      zt_lane_emu = ZtLaneEmu{l, width, &S, &LaneSet::exchange};
+      swapcontext(&S.sched, &S.ctx[l]);
+      live += !S.done[l];
+    }
   }
 }
 
@@ -165,7 +174,7 @@ void run_lanes(Fn body) {
 template <class Fld>
 void fast_field_batch(int op, uint32_t* r, const uint32_t* a,
                       const uint32_t* b, long n) {
-  run_lanes<Fld>([&] {
+  run_lanes(Fld::kTpi, [&] {
     const typename Fld::Params F = Fld::params();
     for (long i = 0; i < n; ++i) {
       uint32_t x[Fld::W], y[Fld::W], z[Fld::W];
@@ -187,7 +196,7 @@ void fast_add_batch(int kind, const uint32_t* pp, const uint32_t* q,
                     uint32_t* out, long n, const void* b3) {
   typename Fld::B3Arg b3v{};
   if (kind == 0) memcpy(&b3v, b3, sizeof(b3v));
-  run_lanes<Fld>([&] {
+  run_lanes(Fld::kTpi, [&] {
     const typename Fld::Params F = Fld::params();
     const typename Fld::B3 B = Fld::b3_lane(b3v);
     for (long i = 0; i < n; ++i) {
@@ -204,9 +213,35 @@ void fast_add_batch(int kind, const uint32_t* pp, const uint32_t* q,
   });
 }
 
+// kind 0: out = 2^k p (K3, complete projective), 1: out = 2^k p (K5,
+// Jacobian), a warp of 32 lanes a point with the products of each step
+// side by side
+template <class Fld>
+void fast_dbl_batch(int kind, const uint32_t* pp, uint32_t* out, long n,
+                    int k, const void* b3) {
+  typename Fld::B3Arg b3v{};
+  if (kind == 0) memcpy(&b3v, b3, sizeof(b3v));
+  run_lanes(32, [&] {
+    const typename Fld::Params F = Fld::params();
+    const typename Fld::B3 B = Fld::b3_lane(b3v);
+    for (long i = 0; i < n; ++i) {
+      const size_t row = (size_t)i * 3 * Fld::ROW;
+      Proj<Fld> a;
+      proj_load<Fld>(a, pp + row);
+      for (int j = 0; j < k; ++j) {
+        if (kind == 0)
+          proj_dbl_side<Fld>(a, a, B, F);
+        else
+          jac_dbl_side<Fld>(a, a, F);
+      }
+      if (Fld::Lane::group() == 0) proj_store<Fld>(out + row, a);
+    }
+  });
+}
+
 // Calls fn.template operator()<Fld>() for the fast field type of (form,
 // tpi), with the kernels' vote span: warp-wide (Uniform) for K2 and for K4
-// over lanes, as add_kernels.cu builds them; a group here is the warp.
+// over lanes, as fast_kernels.cu builds them; a group here is the warp.
 template <bool U, class Fn>
 int dispatch_fast_u(int form, int tpi, Fn&& fn) {
   auto go = [&](auto* tag) { return fn(tag), 0; };
@@ -255,13 +290,13 @@ extern "C" int zt_cpu_bucket_reduce(int form, int affine,
 }
 
 extern "C" int zt_cpu_proj(int form, const uint32_t* pp, const uint32_t* q,
-                           uint32_t* out, long n, int k, const uint32_t* p,
+                           uint32_t* out, long n, const uint32_t* p,
                            const uint32_t* one, unsigned pinv,
                            const void* b3) {
   return dispatch(form, [&](auto* tag) {
     using Fld = std::remove_pointer_t<decltype(tag)>;
     Args<Fld> A(p, one, pinv, b3);
-    proj_batch<Fld>(pp, q, out, n, k, A.b3, A.F);
+    proj_batch<Fld>(pp, q, out, n, A.b3, A.F);
   });
 }
 
@@ -292,6 +327,16 @@ extern "C" int zt_cpu_fast_add(int form, int tpi, int kind, const uint32_t* p,
   return dispatch_fast(form, tpi, kind == 0 || tpi > 1, [&](auto* tag) {
     using Fld = std::remove_pointer_t<decltype(tag)>;
     fast_add_batch<Fld>(kind, p, q, out, n, b3);
+  });
+}
+
+// K3 (kind 0) and K5 (kind 1) over the fast core, as fast_kernels.cu
+// builds them (Uniform, one warp a point)
+extern "C" int zt_cpu_fast_dbl(int form, int tpi, int kind, const uint32_t* p,
+                               uint32_t* out, long n, int k, const void* b3) {
+  return dispatch_fast_u<true>(form, tpi, [&](auto* tag) {
+    using Fld = std::remove_pointer_t<decltype(tag)>;
+    fast_dbl_batch<Fld>(kind, p, out, n, k, b3);
   });
 }
 

@@ -1,36 +1,30 @@
-// The Jacobian engine's doubling and affine-add kernels (ec/jac_curve.py,
-// ec/msm_jac.py):
+// The Jacobian engine's affine-add kernel (ec/jac_curve.py, ec/msm_jac.py):
 //
-//   K5 zt_jac_dbl_chain: out[i] = 2^k p[i], k doublings (curve.cuh
-//                        jac_dbl) inside the thread, one launch per chain;
-//   K6 zt_aff_add:       out[i] = a[i] + b[i] for affine (x, y) rows with
-//                        one infinity flag (a byte) per point, a Jacobian
-//                        result (curve.cuh aff_add).
+//   K6 zt_aff_add: out[i] = a[i] + b[i] for affine (x, y) rows with one
+//                  infinity flag (a byte) per point, a Jacobian result
+//                  (curve.cuh aff_add).
 //
-// K4 jac_add, which this source held until it was redesigned, is now in
-// add_kernels.cu on the fast field core (field_fast.cuh).
+// K4 jac_add and K5 jac_dbl_chain, which this source held until they were
+// redesigned, are in fast_kernels.cu on the fast field core
+// (field_fast.cuh).
 //
-// Replace zecale_tpu/ec/ec_pallas.py:_KernelFamily.jac_dbl (495) /
-// jac_dbl_chain (514-541) and aff_add (543-569).  The TPU kernels
-// transposed a block of bt points into (ew, bt) limb planes so that the
-// VPU's lanes ran across points, and computed the generic sum, the
-// doubling and the infinity cases for every lane before selecting.  Here
-// one thread owns one point: it reads its rows (x | y | z, the layout of
-// the torch tensors), branches to the one case its point is in, and writes
-// the row back.  A dbl chain is a loop inside the thread, so the point
-// never leaves registers between doublings.
+// Replaces zecale_tpu/ec/ec_pallas.py:_KernelFamily.aff_add (543-569).
+// The TPU kernel transposed a block of bt points into (ew, bt) limb planes
+// so that the VPU's lanes ran across points, and computed the generic
+// sum, the doubling and the infinity cases for every lane before
+// selecting.  Here one thread owns one point: it reads its rows (x | y,
+// the layout of the torch tensors), branches to the one case its point is
+// in, and writes the Jacobian row.
 //
-// Bound: operations.  A doubling is 7 Montgomery products, a K6 add 6;
-// over Fq2 each product is three base products.  Each product is 2 NB^2
-// 32x32->64-bit multiply-adds against 3 W words of traffic per operand,
-// far below the card's memory rate.  A chain on one point (the MSM's
-// Horner fold) is one thread's dependent products: latency-bound, not
-// bound by either.
+// Bound: operations.  An add is 6 Montgomery products; over Fq2 each
+// product is three base products.  Each product is 2 NB^2 32x32->64-bit
+// multiply-adds against 2 x 2 W words of traffic in and 3 W out, far
+// below the card's memory rate.
 //
 // One source, built once per field form (-DZT_LIMBS=12 BLS12-377 Fq,
 // -DZT_LIMBS=24 BW6-761 Fq, -DZT_FQ2=1 BLS12-377 Fq2: three nvcc
-// processes), each exporting the two launchers with a plain C interface
-// that returns the CUDA error code of the launch (0 on success).
+// processes), each exporting the launcher with a plain C interface that
+// returns the CUDA error code of the launch (0 on success).
 #include <cuda_runtime.h>
 
 #include "curve.cuh"
@@ -42,21 +36,6 @@
 namespace {
 
 constexpr int kThreads = 128;
-
-template <class Fld>
-__global__ void __launch_bounds__(kThreads)
-    jac_dbl_chain_kernel(const uint32_t* __restrict__ p,
-                         uint32_t* __restrict__ out, int n, int k,
-                         typename Fld::Params F) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const size_t row = (size_t)i * 3 * Fld::W;
-  Jac<Fld> a;
-  proj_load<Fld>(a, p + row);
-#pragma unroll 1
-  for (int j = 0; j < k; ++j) jac_dbl<Fld>(a, a, F);
-  proj_store<Fld>(out + row, a);
-}
 
 template <class Fld>
 __global__ void __launch_bounds__(kThreads)
@@ -83,17 +62,6 @@ __global__ void __launch_bounds__(kThreads)
 int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
 }  // namespace
-
-extern "C" int zt_jac_dbl_chain(const void* p, void* out, int n, int k,
-                                const void* prime, const void* one,
-                                unsigned pinv, void* stream) {
-  if (n <= 0) return 0;
-  jac_dbl_chain_kernel<ZtField>
-      <<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const uint32_t*>(p), static_cast<uint32_t*>(out), n, k,
-          field_params<ZtField>(prime, one, pinv));
-  return (int)cudaGetLastError();
-}
 
 extern "C" int zt_aff_add(const void* a, const void* ainf, const void* b,
                           const void* binf, void* out, int n,

@@ -7,17 +7,18 @@ as hand-written kernels and whose element-wise glue (mask, select,
 infinity, the lift of affine points, the tree and bit-serial sums) is plain
 torch.
 
-  * K4 ``jac_add`` (``csrc/add_kernels.cu`` zt_jac_add) replaces
+  * K4 ``jac_add`` (``csrc/fast_kernels.cu`` zt_jac_add) replaces
     ``_KernelFamily.jac_add`` (473-493): B independent pairs, canonical
     outputs, on the fast field core (compile-time moduli, TPI threads per
     point, TPI from ``utils/build.py:ADD_TPI`` by kernel, form and batch
     size);
-  * K5 ``jac_dbl_chain`` (``csrc/jac_kernels.cu`` zt_jac_dbl_chain)
-    replaces ``_KernelFamily.jac_dbl``
-    (495) and ``jac_dbl_chain`` (514): 2^k P by k doublings in one launch;
-  * K6 ``aff_add`` (zt_aff_add) replaces ``_KernelFamily.aff_add``
-    (543-569): affine + affine with per-point infinity flags, a Jacobian
-    result.
+  * K5 ``jac_dbl_chain`` (``csrc/fast_kernels.cu`` zt_jac_dbl_chain)
+    replaces ``_KernelFamily.jac_dbl`` (495) and ``jac_dbl_chain`` (514):
+    2^k P by k doublings in one launch, on the fast field core, one warp
+    a point (TPI from ``utils/build.py:DBL_TPI``, as K3's);
+  * K6 ``aff_add`` (``csrc/jac_kernels.cu`` zt_aff_add) replaces
+    ``_KernelFamily.aff_add`` (543-569): affine + affine with per-point
+    infinity flags, a Jacobian result.
 
 ``add_mixed`` runs as K4 on the lifted affine point (Z = 1, or Z = 0 where
 it is at infinity): madd-2007-bl equals add-2007-bl at Z2 = 1 in every
@@ -40,7 +41,7 @@ import torch
 
 from ..ff import params as P
 from . import curve_torch as ct
-from .proj_curve import check_points, launch, launch_add
+from .proj_curve import check_points, launch, launch_add, launch_dbl
 
 
 def _count(fn, F) -> None:
@@ -68,6 +69,12 @@ def jac_add_tpi(F, p: torch.Tensor, q: torch.Tensor, tpi) -> torch.Tensor:
 
 def jac_dbl_chain(F, p: torch.Tensor, k: int) -> torch.Tensor:
     """2^k p (k >= 1 doublings, K5)."""
+    return jac_dbl_chain_tpi(F, p, k, None)
+
+
+def jac_dbl_chain_tpi(F, p: torch.Tensor, k: int, tpi) -> torch.Tensor:
+    """``jac_dbl_chain`` with K5's lanes a product set to ``tpi`` (None:
+    the DBL_TPI table's)."""
     if k < 1:
         raise ValueError(f"jac_dbl_chain: k = {k} < 1")
     if p.device.type == "cpu":
@@ -76,12 +83,8 @@ def jac_dbl_chain(F, p: torch.Tensor, k: int) -> torch.Tensor:
         return p
     if p.device.type != "cuda":
         raise ValueError(f"jac_dbl_chain: unsupported device {p.device}")
-    check_points("jac_dbl_chain", F, p)
-    out = torch.empty_like(p)
-    n = p.numel() // (3 * math.prod(F.shape))
-    if n:
-        launch("jac_dbl_chain", "zt_jac_dbl_chain", F, out, p.data_ptr(),
-               out.data_ptr(), n, k)
+    out = launch_dbl("jac_dbl_chain", "zt_jac_dbl_chain", F, tpi, p, k)
+    if out.numel():
         _count(jac_dbl_chain, F)
     return out
 

@@ -2,9 +2,8 @@
 
 Ports ``ec/msm8.py:msm8_core`` (472-600) and ``msm8_jit`` (625) -- the
 ``ZECALE_USE_MSM8`` route of the reference prover -- with every group
-operation on the kernels of ``ec/proj_curve.py``: K2 ``proj_add``
-(``csrc/add_kernels.cu``) and K3 ``proj_dbl_chain``
-(``csrc/proj_kernels.cu``).  The steps, as in the reference:
+operation on the kernels of ``ec/proj_curve.py``: K2 ``proj_add`` and K3
+``proj_dbl_chain`` (``csrc/fast_kernels.cu``).  The steps, as in the reference:
 
   1. balanced signed c-bit digits (``msm.signed_digits``, the port of
      ``signed_digits_from_limbs8``);

@@ -5,14 +5,16 @@ Ports ``ec/ec_pallas.py:PallasProjCurve`` (745-792) and the glue of
 ``add``, ``dbl`` and ``dbl_chain`` run as hand-written kernels and whose
 element-wise glue (mask, select, identity, from_affine) is plain torch.
 
-  * K2 ``proj_add`` (``csrc/add_kernels.cu`` zt_proj_add) replaces
+  * K2 ``proj_add`` (``csrc/fast_kernels.cu`` zt_proj_add) replaces
     ``_KernelFamily.proj_add`` (573-594): B independent pairs, canonical
     outputs, on the fast field core (compile-time moduli, TPI threads per
     point, TPI from ``utils/build.py:ADD_TPI`` by kernel, form and batch
     size);
-  * K3 ``proj_dbl_chain`` (``csrc/proj_kernels.cu`` zt_proj_dbl_chain)
+  * K3 ``proj_dbl_chain`` (``csrc/fast_kernels.cu`` zt_proj_dbl_chain)
     replaces ``_KernelFamily.proj_dbl_chain`` (596-619): 2^k P by k
-    doublings in one launch.
+    doublings in one launch, on the fast field core, one warp a point
+    with the products of each step side by side (TPI lanes a product, from
+    ``utils/build.py:DBL_TPI`` by kernel, form and batch size).
 
 Both exist in three forms, by the group's coordinate field: BLS12-377 Fq
 (12 limbs), BW6-761 Fq (24 limbs, G1 and G2) and BLS12-377 Fq2.  Points are
@@ -32,7 +34,7 @@ import torch
 from ..ff import params as P
 from . import curve_torch as ct
 
-#: the prime each kernel form is built for (add_kernels.cu fixes it at
+#: the prime each kernel form is built for (fast_kernels.cu fixes it at
 #: compile time; the other kernels take it as an argument)
 FORM_PRIME = {"fq12": P.CURVES["bls12-377"].q, "fq24": P.CURVES["bw6-761"].q,
               "fq2": P.CURVES["bls12-377"].q}
@@ -51,20 +53,49 @@ def check_points(name: str, F, *ts, width: int = 3) -> None:
                 f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def launch(name: str, sym: str, F, out, *args, b3=None) -> None:
-    """Launch the kernel ``sym`` in F's form on the current stream: its
-    ``args``, then the field constants, and b3 where the kernel takes one.
-    Raise on a CUDA error."""
+def launch(name: str, sym: str, F, out, *args) -> None:
+    """Launch the kernel ``sym`` of field.cuh's types (K6) in F's form on
+    the current stream: its ``args``, then the field constants.  Raise on
+    a CUDA error."""
     from ..utils.build import cuda_kernels
 
-    p, one, pinv, b3_buf = ct.kernel_consts(F, 0 if b3 is None else b3)
-    consts = [p.ctypes.data, one.ctypes.data, pinv]
-    if b3 is not None:
-        consts.append(b3_buf.ctypes.data)
+    p, one, pinv, _ = ct.kernel_consts(F, 0)
     fn = cuda_kernels()[(sym, (ct.form_of(F),))]
-    rc = fn(*args, *consts, torch.cuda.current_stream(out.device).cuda_stream)
+    rc = fn(*args, p.ctypes.data, one.ctypes.data, pinv,
+            torch.cuda.current_stream(out.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
+def fast_form(name: str, F) -> str:
+    """The kernel form of F for the fast-core kernels, which fix their
+    prime at compile time; raise unless F is the field it was built for."""
+    form = ct.form_of(F)
+    base = getattr(F, "base", F)
+    if base.p != FORM_PRIME.get(form) or getattr(F, "nr", -5) != -5:
+        raise ValueError(f"{name}: the {form} kernels are built for another "
+                         "field")
+    return form
+
+
+def launch_fast(name: str, sym: str, key: tuple, out, *args) -> None:
+    """Launch the fast-core kernel ``sym`` of variant ``key`` (form, TPI)
+    on the current stream; raise if it is not built or on a CUDA error."""
+    from ..utils.build import cuda_kernels
+
+    fn = cuda_kernels().get((sym, key))
+    if fn is None:
+        raise ValueError(f"{name}: no {key[0]} variant with {key[1]} threads "
+                         "per point is built")
+    rc = fn(*args, torch.cuda.current_stream(out.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy where it does not start on 16 bytes: the fast kernels
+    read 8- and 16-byte pieces of each row."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def launch_add(name: str, sym: str, F, tpi, p, q,
@@ -73,19 +104,14 @@ def launch_add(name: str, sym: str, F, tpi, p, q,
     zt_jac_add without) with ``tpi`` threads per point (None: the
     ADD_TPI table's pick for the batch).  Raise unless F is the field the
     form was built for, or on a CUDA error."""
-    from ..utils.build import add_tpi, cuda_kernels
+    from ..utils.build import add_tpi
 
     if p.shape != q.shape:
         raise ValueError(f"{name}: shapes {tuple(p.shape)} and "
                          f"{tuple(q.shape)} differ")
     check_points(name, F, p, q)
-    form = ct.form_of(F)
-    base = getattr(F, "base", F)
-    if base.p != FORM_PRIME.get(form) or getattr(F, "nr", -5) != -5:
-        raise ValueError(f"{name}: the {form} kernels are built for another "
-                         "field")
-    # the kernel reads 8- and 16-byte pieces of each row
-    p, q = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (p, q))
+    form = fast_form(name, F)
+    p, q = aligned(p), aligned(q)
     out = torch.empty_like(p)
     n = p.numel() // (3 * math.prod(F.shape))
     if n:
@@ -94,13 +120,30 @@ def launch_add(name: str, sym: str, F, tpi, p, q,
         args = [p.data_ptr(), q.data_ptr(), out.data_ptr(), n]
         if b3 is not None:
             args.append(ct.kernel_consts(F, b3)[3].ctypes.data)
-        fn = cuda_kernels().get((sym, (form, tpi)))
-        if fn is None:
-            raise ValueError(f"{name}: no {form} variant with {tpi} threads "
-                             "per point is built")
-        rc = fn(*args, torch.cuda.current_stream(out.device).cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+        launch_fast(name, sym, (form, tpi), out, *args)
+    return out
+
+
+def launch_dbl(name: str, sym: str, F, tpi, p, k: int,
+               b3=None) -> torch.Tensor:
+    """2^k p by the fast-core kernel ``sym`` (K3 zt_proj_dbl_chain with
+    b3, K5 zt_jac_dbl_chain without) with ``tpi`` lanes a product (None:
+    the DBL_TPI table's pick for the batch).  Raise unless F is the field
+    the form was built for, or on a CUDA error."""
+    from ..utils.build import dbl_tpi
+
+    check_points(name, F, p)
+    form = fast_form(name, F)
+    p = aligned(p)
+    out = torch.empty_like(p)
+    n = p.numel() // (3 * math.prod(F.shape))
+    if n:
+        if tpi is None:
+            tpi = dbl_tpi(name, form, n)
+        args = [p.data_ptr(), out.data_ptr(), n, k]
+        if b3 is not None:
+            args.append(ct.kernel_consts(F, b3)[3].ctypes.data)
+        launch_fast(name, sym, (form, tpi), out, *args)
     return out
 
 
@@ -126,6 +169,13 @@ def proj_add_tpi(F, p: torch.Tensor, q: torch.Tensor, b3,
 
 def proj_dbl_chain(F, p: torch.Tensor, k: int, b3) -> torch.Tensor:
     """2^k p (k >= 1 complete RCB doublings)."""
+    return proj_dbl_chain_tpi(F, p, k, b3, None)
+
+
+def proj_dbl_chain_tpi(F, p: torch.Tensor, k: int, b3,
+                       tpi) -> torch.Tensor:
+    """``proj_dbl_chain`` with K3's lanes a product set to ``tpi`` (None:
+    the DBL_TPI table's)."""
     if k < 1:
         raise ValueError(f"proj_dbl_chain: k = {k} < 1")
     if p.device.type == "cpu":
@@ -134,12 +184,9 @@ def proj_dbl_chain(F, p: torch.Tensor, k: int, b3) -> torch.Tensor:
         return p
     if p.device.type != "cuda":
         raise ValueError(f"proj_dbl_chain: unsupported device {p.device}")
-    check_points("proj_dbl_chain", F, p)
-    out = torch.empty_like(p)
-    n = p.numel() // (3 * math.prod(F.shape))
-    if n:
-        launch("proj_dbl_chain", "zt_proj_dbl_chain", F, out,
-               p.data_ptr(), out.data_ptr(), n, k, b3=b3)
+    out = launch_dbl("proj_dbl_chain", "zt_proj_dbl_chain", F, tpi, p, k,
+                     b3=b3)
+    if out.numel():
         proj_dbl_chain.launches += 1
         proj_dbl_chain.launches_by_form[ct.form_of(F)] += 1
     return out

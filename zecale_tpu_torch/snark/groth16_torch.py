@@ -14,10 +14,10 @@ Ports ``snark/groth16_tpu.py`` (``DevicePk8`` 201, ``pack_pk8`` 227,
   * msm: A, B1, L, H in G1 and B2 in G2 through one of the three engines
     of the reference: ``"msm4"`` (``ec/msm.py``, bucket sums in the CUDA
     kernel ``csrc/bucket_reduce.cu``), ``"msm8"`` (``ec/msm8.py``, every
-    group operation in ``csrc/add_kernels.cu`` and ``csrc/proj_kernels.cu``)
-    or ``"jac"`` (the reference's ``use_msm8=False`` branch:
-    ``ec/msm_jac.py``, every group operation in ``csrc/add_kernels.cu`` and
-    ``csrc/jac_kernels.cu``).  With no engine given, it is
+    group operation in ``csrc/fast_kernels.cu``) or ``"jac"`` (the
+    reference's ``use_msm8=False`` branch: ``ec/msm_jac.py``, every group
+    operation in ``csrc/fast_kernels.cu`` and ``csrc/jac_kernels.cu``).
+    With no engine given, it is
     chosen as ``groth16_tpu.py:510-513`` chooses: ``ZECALE_USE_MSM8`` set
     selects msm8, else msm4.  The coordinates of BW6-761 G1 and G2 lie in
     Fq; BLS12-377 G2 lies in Fq2 (``ff/fp2_torch.py``);

@@ -31,7 +31,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-GXX_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC", "-pthread",
+GXX_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC",
              "-Wno-unknown-pragmas"]
 
 #: seconds and compiler log of the last build done by this process
@@ -99,7 +99,7 @@ FORMS = {
     "fq2": ["-DZT_FQ2=1"],
 }
 
-#: Threads per point of K2 (proj_add) and K4 (jac_add), add_kernels.cu,
+#: Threads per point of K2 (proj_add) and K4 (jac_add), fast_kernels.cu,
 #: by kernel and form: rows (largest batch, TPI), the last row's bound
 #: None (any batch).  A wrapper takes the first row whose bound holds its
 #: batch.  The build makes every TPI a form names, for both kernels: at
@@ -121,19 +121,53 @@ ADD_TPI = {
 }
 
 
+def _row(table: dict, kernel: str, form: str, n: int) -> tuple:
+    """The first row of table[kernel][form] whose bound holds n, without
+    its bound."""
+    for bound, *pick in table[kernel][form]:
+        if bound is None or n <= bound:
+            return tuple(pick)
+    raise ValueError(f"no row of {kernel} {form} for n = {n}")
+
+
 def add_tpi(kernel: str, form: str, n: int) -> int:
     """Threads per point of ``kernel`` (K2 "proj_add" or K4 "jac_add") for
     a batch of n points in ``form``."""
-    for bound, tpi in ADD_TPI[kernel][form]:
-        if bound is None or n <= bound:
-            return tpi
-    raise ValueError(f"ADD_TPI[{kernel!r}][{form!r}] has no row for n = {n}")
+    return _row(ADD_TPI, kernel, form, n)[0]
 
 
 #: the TPIs built for each form: every one that ADD_TPI names
 ADD_TPIS = {form: sorted({t for table in ADD_TPI.values()
                           for _, t in table[form]})
             for form in FORMS}
+
+#: Threads per point-group of K3 (proj_dbl_chain) and K5 (jac_dbl_chain),
+#: fast_kernels.cu, by kernel and form: rows (largest batch, TPI), looked
+#: up as ADD_TPI's.  Both kernels run one warp a point with the products of
+#: each step side by side, in 32 / TPI groups of TPI lanes; every
+#: fast_kernels variant (ADD_TPIS) builds them.  From a sweep of every
+#: built TPI at the paths' batches (1, 35 and 48 points) on the H100
+#: (PERF.md section 6): eight lanes at Fq 24, four at Fq 12, one thread
+#: over Fq2 (four lanes tie there within 5%).  No path sends more than 48
+#: points; at 16,384 a warp a point costs 32 / TPI times the threads.
+DBL_TPI = {
+    "proj_dbl_chain": {
+        "fq12": ((None, 4),),
+        "fq24": ((None, 8),),
+        "fq2": ((None, 1),),
+    },
+    "jac_dbl_chain": {
+        "fq12": ((None, 4),),
+        "fq24": ((None, 8),),
+        "fq2": ((None, 1),),
+    },
+}
+
+
+def dbl_tpi(kernel: str, form: str, n: int) -> int:
+    """Threads per point-group of ``kernel`` (K3 "proj_dbl_chain" or K5
+    "jac_dbl_chain") for a batch of n points in ``form``."""
+    return _row(DBL_TPI, kernel, form, n)[0]
 
 
 #: One entry per kernel source: its variants (key -> -D flags, one nvcc and
@@ -151,7 +185,7 @@ KERNELS = {
                                  ctypes.c_uint, _VP, _VP],
         },
     },
-    "add_kernels.cu": {
+    "fast_kernels.cu": {
         "variants": {(form, t): FORMS[form] + [f"-DZT_TPI={t}"]
                      for form, ts in ADD_TPIS.items() for t in ts},
         "symbols": {
@@ -159,22 +193,15 @@ KERNELS = {
             "zt_proj_add": [_VP, _VP, _VP, _CI, _VP, _VP],
             # p, q, out, n, stream
             "zt_jac_add": [_VP, _VP, _VP, _CI, _VP],
-        },
-    },
-    "proj_kernels.cu": {
-        "variants": {(form,): flags for form, flags in FORMS.items()},
-        "symbols": {
-            # p, out, n, k, prime, one, pinv, b3, stream
-            "zt_proj_dbl_chain": [_VP, _VP, _CI, _CI, _VP, _VP,
-                                  ctypes.c_uint, _VP, _VP],
+            # p, out, n, k, b3, stream
+            "zt_proj_dbl_chain": [_VP, _VP, _CI, _CI, _VP, _VP],
+            # p, out, n, k, stream
+            "zt_jac_dbl_chain": [_VP, _VP, _CI, _CI, _VP],
         },
     },
     "jac_kernels.cu": {
         "variants": {(form,): flags for form, flags in FORMS.items()},
         "symbols": {
-            # p, out, n, k, prime, one, pinv, stream
-            "zt_jac_dbl_chain": [_VP, _VP, _CI, _CI, _VP, _VP,
-                                 ctypes.c_uint, _VP],
             # a, ainf, b, binf, out, n, prime, one, pinv, stream
             "zt_aff_add": [_VP, _VP, _VP, _VP, _VP, _CI, _VP, _VP,
                            ctypes.c_uint, _VP],
@@ -216,6 +243,12 @@ def cuda_kernels() -> dict:
     return fns
 
 
+def kernel_label(mangled: str):
+    """The kernel function of a mangled name; None for another symbol."""
+    kernel = re.search(r"([a-z][a-z_]*_kernel)I", mangled)
+    return kernel.group(1) if kernel else None
+
+
 def build_report() -> list:
     """One line per job of this process: seconds, and the ptxas register
     and spill lines of its log."""
@@ -226,9 +259,9 @@ def build_report() -> list:
             continue
         regs = []
         for ln in info["log"].splitlines():
-            kernel = re.search(r"([a-z][a-z_]*_kernel)I", ln)
+            kernel = kernel_label(ln)
             if "entry function" in ln and kernel:
-                regs.append(kernel.group(1))
+                regs.append(kernel)
             elif "registers" in ln or "spill" in ln:
                 regs.append(ln.split(":", 1)[-1].strip())
         out.append(f"{stem}: {info['seconds']:.1f}s {regs}")
@@ -249,7 +282,7 @@ def host_check_lib() -> ctypes.CDLL:
     lib.zt_cpu_bucket_reduce.argtypes = [ci, ci, vp, vp, vp, ci, vp, vp, vp,
                                          ctypes.c_uint, vp]
     lib.zt_cpu_bucket_reduce.restype = ci
-    lib.zt_cpu_proj.argtypes = [ci, vp, vp, vp, ctypes.c_long, ci, vp, vp,
+    lib.zt_cpu_proj.argtypes = [ci, vp, vp, vp, ctypes.c_long, vp, vp,
                                 ctypes.c_uint, vp]
     lib.zt_cpu_proj.restype = ci
     lib.zt_cpu_jac.argtypes = [ci, ci, vp, vp, vp, vp, vp, ctypes.c_long, ci,
@@ -260,6 +293,9 @@ def host_check_lib() -> ctypes.CDLL:
     lib.zt_cpu_fast_add.argtypes = [ci, ci, ci, vp, vp, vp, ctypes.c_long,
                                     vp]
     lib.zt_cpu_fast_add.restype = ci
+    lib.zt_cpu_fast_dbl.argtypes = [ci, ci, ci, vp, vp, ctypes.c_long, ci,
+                                    vp]
+    lib.zt_cpu_fast_dbl.restype = ci
     lib.zt_cpu_fast_consts.argtypes = [ci, vp, vp]
     lib.zt_cpu_fast_consts.restype = ctypes.c_uint
     return lib
