@@ -5,16 +5,20 @@ Phases, each printing one flushed line with its seconds:
 
   1. the card (nvidia-smi name and power limit) and the nvcc build of every
      kernel (one nvcc process per source and variant, all started
-     together), with each job's seconds and its ptxas register and spill
-     lines, and the SASS opcode counts of K2-K5 (cuobjdump of
-     fast_kernels);
+     together: fast_kernels.cu once per (form, TPI) of
+     utils/build.py:ADD_TPIS, which holds K1-K6), with each job's seconds
+     and its ptxas register and spill lines, and the SASS opcode counts of
+     every kernel (cuobjdump);
   2. the bucket-reduce kernel (K1) against its plain PyTorch version on the
      card, for BW6-761 G1 (b3=-3), BW6-761 G2 (b3=12), BLS12-377 G1 (b3=3)
-     and [2b] BLS12-377 G2 over Fq2 (twist b3): a few thousand crafted
-     segments with empty buckets, single points, P+P, P+(-P) and repeated
-     points, then, for BW6-761 G1 and BLS12-377 G2 (the Fq 24 and Fq2
-     variants that the kernel table reports), the launches of an MSM at
-     n = 2^16, timed;
+     and [2b] BLS12-377 G2 over Fq2 (twist b3), in every built TPI: a few
+     thousand crafted segments with empty buckets, single points, P+P,
+     P+(-P) and repeated points, after a block in which every warp mixes
+     segments of 0, 1 and 32 entries, as affine and as projective inputs;
+     then, for BW6-761 G1, BLS12-377 G1 and G2 (one group a form), every
+     launch of an MSM at n = 2^16 (its bucket levels, then its subset
+     sums), each in every TPI, timed, with its bound, the first also on
+     its first 4,096-65,536 segments;
      [2c] K2 proj_add and [2d] K3 proj_dbl_chain (k = 1, 6 and the
      wrapper's msm8 window c = 11) against their plain versions in all
      three field forms (Fq 12 and 24 limbs, Fq2), a few thousand pairs with
@@ -30,10 +34,11 @@ Phases, each printing one flushed line with its seconds:
      3, 8) and K6 aff_add against their plain versions in the three forms
      on a few thousand crafted cases (O+O, O+P and P+O with nonzero X and Y
      at infinity, P+P with equal and with different Z, P+(-P), distinct
-     points; K6 with each infinity flag, P = Q, P = -Q), then K4 and K6
-     timed at the first tiled round of the jac engine's largest MSM (48
-     windows x 1,024 tiles of a BW6-761 G1 MSM at n = 2^16) and K5 at its
-     Horner fold (k = 8);
+     points; K6 with each infinity flag, P = Q, P = -Q), K4 and K6 in
+     every built TPI, then K4 and K6 timed in every TPI at the first tiled
+     round of the jac engine's largest MSM (48 windows x 1,024 tiles of a
+     BW6-761 G1 MSM at n = 2^16), K6 also at the setup's 16,384-lane
+     chunk, and K5 at its Horner fold (k = 8);
   3. a small Groth16 proof on the card equal to the host prover's; [3b] the
      nested BLS12-377 dummy-app proof made on the card (G2 over Fq2), equal
      to the host prover's from the same rng state and valid, its keypair
@@ -50,8 +55,8 @@ Phases, each printing one flushed line with its seconds:
      wrapper proof must be rejected; [3j] the wrapper's device setup, the
      msm8 and jac proves and a second msm4 prove run under torch.profiler
      (CUDA activity), each with the device time of every kernel summed by
-     name and its K2-K5 launches counted by batch size and variant, with
-     their device ms;
+     name and its K1-K6 launches counted by batch size (K1: segments) and
+     variant, with their device ms;
   4. bench.py's MSM shape on the three engines: BLS12-377 G1 at n = 2^18
      with uniform scalars from random.Random(42) and 64 cycled bases,
      checked against the folded host MSM, Mpoints/s after one warm-up run;
@@ -112,7 +117,7 @@ def smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-#: SASS opcodes counted in K2-K5: multiply-adds, local memory (spills
+#: SASS opcodes counted in K1-K6: multiply-adds, local memory (spills
 #: and runtime-indexed arrays), shuffles and votes
 SASS_OPS = ("IMAD", "LDL", "STL", "SHFL", "VOTE")
 
@@ -232,8 +237,10 @@ KERNEL_OF = {"bucket_reduce": "bucket_reduce_kernel",
              "aff_add": "aff_add_kernel"}
 
 
-#: the wrappers whose launches [3j] counts by batch size and variant
-SIZED = ("proj_add", "jac_add", "proj_dbl_chain", "jac_dbl_chain")
+#: the wrappers whose launches [3j] counts by batch size (K1: segments)
+#: and variant
+SIZED = ("bucket_reduce", "proj_add", "jac_add", "proj_dbl_chain",
+         "jac_dbl_chain", "aff_add")
 
 
 def profiled(fn) -> tuple:
@@ -270,49 +277,42 @@ def profiled(fn) -> tuple:
                                for k, v in starts.items()}}
 
 
-#: upper ends of the batch-size classes of the K2-K5 launch histogram
+#: upper ends of the size classes of the K1-K6 launch histogram
 SIZE_CLASSES = (1, 128, 1024, 4096, 16384, 65536, None)
 
 
 class Launches:
-    """Records the batch size and variant of every K2-K5 launch (K2 / K4
-    through proj_curve.launch_add, K3 / K5 through launch_dbl) while it is
-    entered; the launch counts stay the wrappers' own."""
+    """Records the size (points, or K1's segments) and variant of every
+    K1-K6 launch while it is entered, by wrapping proj_curve.launch_fast,
+    which every wrapper launches through; the launch counts stay the
+    wrappers' own."""
+
+    #: the argument of each launcher that holds the launch's size
+    SIZE_ARG = {"zt_bucket_reduce": 3, "zt_proj_add": 3, "zt_jac_add": 3,
+                "zt_proj_dbl_chain": 2, "zt_jac_dbl_chain": 2,
+                "zt_aff_add": 5}
 
     def __enter__(self):
         from zecale_tpu_torch.ec import jac_curve as jc
         from zecale_tpu_torch.ec import proj_curve as pc
-        from zecale_tpu_torch.ec.curve_torch import form_of
-        from zecale_tpu_torch.utils import build
 
         self.mods = (pc, jc)
-        self.orig = (pc.launch_add, pc.launch_dbl)
+        self.orig = pc.launch_fast
         self.sizes = []
 
-        def points(F, p):
-            return p.numel() // (3 * math.prod(F.shape))
-
-        def rec_add(name, sym, F, tpi, p, q, b3=None):
-            n, form = points(F, p), form_of(F)
-            if n:
-                t = tpi or build.add_tpi(name, form, n)
-                self.sizes.append((name, form, n, f"tpi{t}"))
-            return self.orig[0](name, sym, F, tpi, p, q, b3=b3)
-
-        def rec_dbl(name, sym, F, tpi, p, k, b3=None):
-            n, form = points(F, p), form_of(F)
-            if n:
-                t = tpi or build.dbl_tpi(name, form, n)
-                self.sizes.append((name, form, n, f"tpi{t}"))
-            return self.orig[1](name, sym, F, tpi, p, k, b3=b3)
+        def rec(name, sym, key, out, *args):
+            form, tpi = key
+            self.sizes.append((name, form, args[self.SIZE_ARG[sym]],
+                               f"tpi{tpi}"))
+            return self.orig(name, sym, key, out, *args)
 
         for m in self.mods:
-            m.launch_add, m.launch_dbl = rec_add, rec_dbl
+            m.launch_fast = rec
         return self
 
     def __exit__(self, *exc):
         for m in self.mods:
-            m.launch_add, m.launch_dbl = self.orig
+            m.launch_fast = self.orig
 
     def histogram(self, launch_us: dict = None) -> dict:
         """{"kernel form variant": {"<=n": [launches, device ms or None]}}:
@@ -338,9 +338,74 @@ class Launches:
 def log_profile(run: str, profiles: dict, hists: dict) -> None:
     prof = dict(profiles[run])
     prof.pop("launch_us")
-    log(f"[3j] {run}, device time by kernel: {json.dumps(prof)}; K2-K5 "
-        f"launches [count, device ms] by batch size: "
+    log(f"[3j] {run}, device time by kernel: {json.dumps(prof)}; K1-K6 "
+        f"launches [count, device ms] by batch size (K1: segments): "
         f"{json.dumps(hists[run])}")
+
+
+#: segment counts of K1's sweep: the first segments of an MSM's first
+#: bucket level, between its subset sums' and its own counts
+K1_SWEEP_SEGS = (4096, 16384, 32768, 49152, 65536)
+
+
+def k1_levels(stage: str, F, b3, pts, ent, counts, affine: bool,
+              tpis) -> list:
+    """The launches msm.reduce_runs makes for these runs (one level a
+    launch), each in every built TPI equal to the plain version and timed,
+    with its bound: a product count of one add per entry, and each input
+    and output read or written once.  "ms" is the table's pick.  The
+    first level is also timed on its first m segments for each m of
+    K1_SWEEP_SEGS below its count."""
+    import torch
+
+    from zecale_tpu_torch.ec import msm
+    from zecale_tpu_torch.ec.curve_torch import form_of
+    from zecale_tpu_torch.utils import build
+
+    dev = pts.device
+    form = form_of(F)
+    seg, nch = msm.segments(counts, ent.numel())
+    levels = []
+    while True:
+        got = msm.bucket_reduce(pts, ent, seg, F, b3, affine)
+        torch.cuda.synchronize()
+        t_ref = time.time()
+        ref = msm.bucket_reduce_ref(pts, ent, seg, F, b3, affine)
+        torch.cuda.synchronize()
+        plain_ms = (time.time() - t_ref) * 1e3
+        err = max_err(got, ref)
+        nseg = seg.numel() - 1
+        pick = build.sum_tpi("bucket_reduce", form, ent.numel())
+        level = {"stage": stage, "affine": affine, "segments": nseg,
+                 "entries": ent.numel(),
+                 "longest": int((seg[1:] - seg[:-1]).max()), "tpi": pick}
+        for t in tpis:
+            run = lambda t=t: msm.bucket_reduce_tpi(  # noqa: E731
+                pts, ent, seg, F, b3, affine, t)
+            err = max(err, max_err(run(), ref))
+            level[f"tpi{t}_ms"] = cuda_ms(run, 3)
+        if not levels:  # the first level's first m segments, every TPI
+            level["sweep"] = []
+            for m in (m for m in K1_SWEEP_SEGS if m < nseg):
+                row = {"segments": m}
+                for t in tpis:
+                    run = lambda t=t: msm.bucket_reduce_tpi(  # noqa: E731
+                        pts, ent, seg[:m + 1], F, b3, affine, t)
+                    err = max(err, max_err(run(), ref[:m]))
+                    row[f"tpi{t}_ms"] = cuda_ms(run, 3)
+                level["sweep"].append(row)
+        check(err == 0, f"K1 {stage} level {len(levels)}: differs from plain")
+        ops = ent.numel() * add_muls(F, mixed=affine) * mul_ops(F)
+        nbytes = 4 * (pts.numel() + ent.numel() + seg.numel() + got.numel())
+        level["bound_ms"], level["bound_by"] = bound(ops, nbytes)
+        level.update(ms=level[f"tpi{pick}_ms"], plain_ms=plain_ms,
+                     max_abs_err=err)
+        levels.append(level)
+        if int(nch.max()) <= 1:
+            return levels
+        pts, affine = got, False
+        ent = torch.arange(got.shape[0], dtype=torch.int32, device=dev) * 2
+        seg, nch = msm.segments(nch, ent.numel())
 
 
 # ---------------------------------------------------------------------------
@@ -348,7 +413,7 @@ def log_profile(run: str, profiles: dict, hists: dict) -> None:
 # ---------------------------------------------------------------------------
 
 
-def k1_phase(stats: dict) -> None:
+def k1_phase(stats: dict, tpis: dict) -> None:
     import torch
 
     from zecale_tpu_torch.ec import curve_torch as ct
@@ -372,8 +437,15 @@ def k1_phase(stats: dict) -> None:
         xy, _ = ct.pack_affine(F, pts, dev)
         rng = random.Random(7)
 
-        # crafted segments: empty, single, P+P, P+(-P), repeats, mixes
+        # crafted segments: first a block whose every warp at every TPI
+        # mixes segments of 0, 1 and 32 entries (the warp's trip count and
+        # the select), then empty, single, P+P, P+(-P), repeats, mixes
         segs = []
+        for i in range(64):
+            segs.append([[], [2 * rng.randrange(D)],
+                         [2 * rng.randrange(D) + 1 for _ in range(msm.SEG)],
+                         [2 * rng.randrange(D) for _ in range(
+                             rng.randrange(2, msm.SEG))]][i % 4])
         for i in range(3000):
             kind = i % 6
             a, b = rng.randrange(D), rng.randrange(D)
@@ -396,11 +468,16 @@ def k1_phase(stats: dict) -> None:
         for s in segs:
             offs.append(offs[-1] + len(s))
         seg = torch.tensor(offs, dtype=torch.int32, device=dev)
+        form = ct.form_of(F)
         got = msm.bucket_reduce(xy, ent, seg, F, b3, True)
         ref = msm.bucket_reduce_ref(xy, ent, seg, F, b3, True)
         torch.cuda.synchronize()
         err = int((got.long() - ref.long()).abs().max())
         check(err == 0, f"{curve} g2={g2}: edge-case partials differ")
+        for t in tpis[form]:  # every built variant, not only the pick
+            e = max_err(msm.bucket_reduce_tpi(xy, ent, seg, F, b3, True, t),
+                        ref)
+            check(e == 0, f"K1 {form} tpi={t}: edge-case partials differ")
         aff = ct.to_affine_host(F, got)
         check(aff == ct.to_affine_host(F, ref), "affine partials differ")
         for s, pt in list(zip(segs, aff))[:120]:
@@ -413,18 +490,19 @@ def k1_phase(stats: dict) -> None:
         e2 = torch.arange(got.shape[0], dtype=torch.int32, device=dev) * 2
         s2 = torch.arange(0, got.shape[0] + 1, 5, dtype=torch.int32,
                           device=dev)
-        got2 = msm.bucket_reduce(got, e2, s2, F, b3, False)
         ref2 = msm.bucket_reduce_ref(got, e2, s2, F, b3, False)
-        err = max(err, int((got2.long() - ref2.long()).abs().max()))
+        for t in [None] + tpis[form]:
+            got2 = msm.bucket_reduce_tpi(got, e2, s2, F, b3, False, t)
+            err = max(err, max_err(got2, ref2))
         check(err == 0, f"{curve} g2={g2}: projective partials differ")
 
-        # the launches of one MSM at the wrapper's shapes (n = 2^16,
-        # uniform scalars: the H MSM's distribution), timed, for the two
-        # groups the kernel table reports: the wrapper's G1 (Fq 24) and
-        # the nested G2 (Fq2).  BW6-761 G2 and BLS12-377 G1 share those
-        # kernel variants and keep the crafted segments above.
+        # the launches of one MSM at n = 2^16 (uniform scalars: the H
+        # MSM's distribution), timed, for one group a form: the wrapper's
+        # G1 (Fq 24), the nested G1 (Fq 12) and G2 (Fq2): the bucket
+        # levels, then the subset sums.  BW6-761 G2 shares the Fq 24
+        # variants and keeps the crafted segments above.
         levels, c = [], msm.default_window(1 << 16)
-        if (curve, g2) in (("bw6-761", False), ("bls12-377", True)):
+        if (curve, g2) != ("bw6-761", True):
             n = 1 << 16
             r = P.CURVES[curve].r
             Fr = field(r)
@@ -432,43 +510,21 @@ def k1_phase(stats: dict) -> None:
             xy_n = xy[torch.arange(n, device=dev) % D].contiguous()
             inf = torch.zeros(n, dtype=torch.bool, device=dev)
             ent, counts = msm.bucket_entries(scal, inf, r.bit_length(), c)
-            seg, nch = msm.segments(counts, ent.numel())
-            pts_l, ent_l, affine = xy_n, ent, True
-            while True:
-                run = lambda: msm.bucket_reduce(  # noqa: E731
-                    pts_l, ent_l, seg, F, b3, affine)
-                got = run()
-                torch.cuda.synchronize()
-                t_ref = time.time()
-                ref = msm.bucket_reduce_ref(pts_l, ent_l, seg, F, b3, affine)
-                torch.cuda.synchronize()
-                plain_ms = (time.time() - t_ref) * 1e3
-                e = int((got.long() - ref.long()).abs().max())
-                check(e == 0, f"{curve} g2={g2}: MSM-shape partials differ")
-                err = max(err, e)
-                ms = cuda_ms(run, 3)
-                adds = ent_l.numel()
-                ops = adds * add_muls(F, mixed=affine) * mul_ops(F)
-                nbytes = (adds * (4 + (2 if affine else 3) * 4 * words(F))
-                          + seg.numel() * 4 + got.numel() * 4)
-                bound_ms, bound_by = bound(ops, nbytes)
-                levels.append({
-                    "affine": affine, "segments": seg.numel() - 1,
-                    "entries": adds, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bound_ms, "bound_by": bound_by,
-                })
-                if int(nch.max()) <= 1:
-                    break
-                pts_l, affine = got, False
-                ent_l = torch.arange(got.shape[0], dtype=torch.int32,
-                                     device=dev) * 2
-                seg, nch = msm.segments(nch, ent_l.numel())
+            levels = k1_levels("buckets", F, b3, xy_n, ent, counts, True,
+                               tpis[form])
+            sums = msm.reduce_runs(xy_n, ent, counts, F, b3, True)
+            W = msm.num_windows(r.bit_length(), c)
+            ent, counts = msm.subset_entries(W, c, dev)
+            levels += k1_levels("subsets", F, b3, sums, ent, counts, False,
+                                tpis[form])
+            err = max([err] + [lv["max_abs_err"] for lv in levels])
         stats[(curve, g2)] = {"max_abs_err": err, "levels": levels}
         tag = "[2b] " if len(F.shape) == 2 else ""
         b3s = "twist" if len(F.shape) == 2 else b3
-        log(f"{tag}K1 {curve} {'G2' if g2 else 'G1'} b3={b3s}: equal to plain "
-            f"(3000 crafted segments + {len(levels)} MSM-shape launches, "
-            f"c={c}); {json.dumps(levels)} ({time.time() - t0:.1f}s)")
+        log(f"{tag}K1 {curve} {'G2' if g2 else 'G1'} b3={b3s}: every TPI "
+            f"{tpis[form]} equal to plain (3064 crafted segments, affine and "
+            f"projective, + {len(levels)} MSM-shape launches, c={c}); "
+            f"{json.dumps(levels)} ({time.time() - t0:.1f}s)")
 
 
 # ---------------------------------------------------------------------------
@@ -514,7 +570,7 @@ def sweep(name: str, run, ref, sizes, variants: dict, ops_per,
 
 
 def tpi_variants(tpis) -> dict:
-    """K2-K5 sweep variants: one per built TPI."""
+    """K1-K6 sweep variants: one per built TPI."""
     return {f"tpi{t}": t for t in tpis}
 
 
@@ -537,6 +593,11 @@ def dbl_check(name: str, run, plain, pts, ks, tpis, w: int) -> int:
                       f"plain")
                 err = max(err, e)
     return err
+
+
+#: batch sizes of the K6 sweep below the table's shape: the setup's
+#: fixed-base chunk
+K6_SWEEP_N = (16384,)
 
 
 #: batch sizes of the K2 / K4 sweep: a Horner add, a step of msm8's scan
@@ -817,16 +878,19 @@ def jac_phase(stats: dict, tpis: dict) -> None:
         got6 = jc.aff_add(F, a6, inf_l, b6, inf_r)
         ref6 = ct.aff_add(F, a6, inf_l, b6, inf_r)
         torch.cuda.synchronize()
-        err6 = int((got6.long() - ref6.long()).abs().max())
+        err6 = max_err(got6, ref6)
         check(err6 == 0, f"K6 {form}: crafted sums differ from plain")
+        for t in tpis[form]:  # every built variant, not only the pick
+            e = max_err(jc.aff_add_tpi(F, a6, inf_l, b6, inf_r, t), ref6)
+            check(e == 0, f"K6 {form} tpi={t}: crafted sums differ")
         h_l = crv.to_affine_host(crv.lift(a6[:70], inf_l[:70]))
         h_r = crv.to_affine_host(crv.lift(b6[:70], inf_r[:70]))
         check(crv.to_affine_host(got6[:70])
               == [g.add(p, q) for p, q in zip(h_l, h_r)],
               f"K6 {form}: sums differ from the host curve")
         log(f"[2e] K4/K5/K6 {form} ({curve} {'G2' if g2 else 'G1'}): equal "
-            f"to plain on {B} crafted cases each (K5 k = 1, 3, {c} in every "
-            f"TPI {tpis[form]}, also on 1 and 48 points) "
+            f"to plain on {B} crafted cases each, in every built TPI "
+            f"(K5 k = 1, 3, {c}, also on 1 and 48 points) "
             f"({time.time() - t0:.1f}s)")
 
         # timed at the largest launch of the paths, on finite distinct
@@ -867,22 +931,27 @@ def jac_phase(stats: dict, tpis: dict) -> None:
                           "bound_by": bby, "max_abs_err": err4,
                           "sweep": list(swp.values())}
         del ref
+        # K6 in every TPI at the tiled round's lanes and the setup's chunk
         xa, xb, fb = xy[ja[:big]], xy[jb[:big]], fin[:big]
-        run = lambda: jc.aff_add(F, xa, fb, xb, fb)  # noqa: E731
-        got = run()
-        ms = cuda_ms(run, 3)
         t_ref = time.time()
         ref = ct.aff_add(F, xa, fb, xb, fb)
         torch.cuda.synchronize()
         plain_ms = (time.time() - t_ref) * 1e3
-        e = max_err(got, ref)
-        check(e == 0, f"aff_add {form}: main-shape sums differ from plain")
-        bms, bby = bound(big * jac_muls(F, "aff") * mul_ops(F),
-                         big * (4 * W * 4 + 2 + 3 * W * 4))
-        out["aff_add"] = {"lanes": big, "ms": ms, "plain_ms": plain_ms,
-                          "bound_ms": bms, "bound_by": bby,
-                          "max_abs_err": max(e, err6)}
-        del got, ref
+        ops_per = jac_muls(F, "aff") * mul_ops(F)
+        bytes_per = 4 * W * 4 + 2 + 3 * W * 4
+        run = lambda n, t: jc.aff_add_tpi(  # noqa: E731
+            F, xa[:n], fb[:n], xb[:n], fb[:n], t)
+        sizes = [big] + [n for n in K6_SWEEP_N if n < big]
+        swp = sweep(f"K6 {form}", run, ref, sizes,
+                    tpi_variants(tpis[form]), ops_per, bytes_per)
+        pick = build.sum_tpi("aff_add", form, big)
+        bms, bby = bound(big * ops_per, big * bytes_per)
+        out["aff_add"] = {"lanes": big, "tpi": pick,
+                          "ms": swp[big][f"tpi{pick}_ms"],
+                          "plain_ms": plain_ms, "bound_ms": bms,
+                          "bound_by": bby, "max_abs_err": err6,
+                          "sweep": list(swp.values())}
+        del ref
         # K5 at the Horner fold's k on the batches of DBL_SWEEP_N
         pts = p4[:max(DBL_SWEEP_N)].contiguous()
         ref = plain5(pts, c)
@@ -1236,14 +1305,13 @@ def main() -> int:
     log(f"[1] kernel build {build_s:.1f}s, {len(build.last_build)} nvcc "
         f"jobs started together (budget 60s)")
     sass = sass_counts({stem: info["path"]
-                        for stem, info in build.last_build.items()
-                        if stem.startswith("fast_kernels")})
+                        for stem, info in build.last_build.items()})
     for lib, counts in sorted(sass.items()):
         log(f"[1] SASS of {lib}: {json.dumps(counts)}")
 
     t0 = time.time()
     stats = {}
-    k1_phase(stats)
+    k1_phase(stats, build.ADD_TPIS)
     log(f"[2] K1 checks done ({time.time() - t0:.1f}s)")
     t0 = time.time()
     pstats = {}
@@ -1273,7 +1341,7 @@ def main() -> int:
         "bound_by": d["bound_by"], "library_ms": None,
     }
     kernels = {"kernels": [
-        entry("bucket_reduce", "bucket_reduce.cu",
+        entry("bucket_reduce", "fast_kernels.cu",
               "zecale_tpu/ec/msm4.py:543", main_level,
               max(s["max_abs_err"] for s in stats.values())),
         entry("proj_add", "fast_kernels.cu",
@@ -1289,7 +1357,7 @@ def main() -> int:
               max(j[name]["max_abs_err"] for j in jstats.values()))
         for name, src, line in (("jac_add", "fast_kernels.cu", 473),
                                 ("jac_dbl_chain", "fast_kernels.cu", 514),
-                                ("aff_add", "jac_kernels.cu", 543))
+                                ("aff_add", "fast_kernels.cu", 543))
     ]}
     for k in kernels["kernels"]:
         check(k["launches"] > 0, f"{k['name']} never launched on the paths")

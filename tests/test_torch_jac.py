@@ -199,23 +199,39 @@ def test_jac_law_affine_values_match_host_curve(curve, g2):
     assert got == want
 
 
-def _cpu_jac(F, op, a, b=None, a_inf=None, b_inf=None, k=0):
+def _cpu_jac(F, op, a, b=None, k=0):
+    """curve.cuh's jac_add (op 0) or k jac_dbl (op 1) over field.cuh's
+    types, built by g++."""
     form = 2 if len(F.shape) == 2 else F.n
     p, one, pinv, _ = ct.kernel_consts(F, 0)
     lead = a.shape[0]
     out = torch.empty(lead, 3, *F.shape, dtype=torch.int32)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     rc = build.host_check_lib().zt_cpu_jac(
-        form, op, a.data_ptr(), ptr(a_inf), ptr(b), ptr(b_inf),
+        form, op, a.data_ptr(), None if b is None else b.data_ptr(),
         out.data_ptr(), lead, k, p.ctypes.data, one.ctypes.data, pinv)
+    assert rc == 0
+    return out
+
+
+def _cpu_aff_add(F, xy_a, inf_a, xy_b, inf_b):
+    """K6's CPU build (the fast core) in the form and threads per point the
+    wrapper would pick; the lanes of a warp run as coroutines."""
+    form = ct.form_of(F)
+    tpi = build.sum_tpi("aff_add", form, xy_a.shape[0])
+    out = torch.empty(xy_a.shape[0], 3, *F.shape, dtype=torch.int32)
+    rc = build.host_check_lib().zt_cpu_fast_aff_add(
+        {"fq12": 12, "fq24": 24, "fq2": 2}[form], tpi, xy_a.data_ptr(),
+        inf_a.data_ptr(), xy_b.data_ptr(), inf_b.data_ptr(), out.data_ptr(),
+        xy_a.shape[0])
     assert rc == 0
     return out
 
 
 @pytest.mark.parametrize("curve,g2", FORMS)
 def test_kernel_device_code_cpu_build_matches_plain(curve, g2):
-    """csrc/curve.cuh's jac_add, jac_dbl and aff_add, built by g++ for the
-    field form of the group, give the plain versions' limbs."""
+    """csrc/curve.cuh's jac_add and jac_dbl, built by g++ for the field
+    form of the group, and K6's device code (aff_add over the fast field
+    core, as fast_kernels.cu builds it), give the plain versions' limbs."""
     crv = jc.JacCurve(curve, g2)
     F = crv.F
     lhs, rhs = _jac_pairs(curve, g2, 23)
@@ -226,7 +242,7 @@ def test_kernel_device_code_cpu_build_matches_plain(curve, g2):
     l_ops, r_ops = _aff_pairs(curve, g2, 29)
     xy_a, inf_a = _aff_to_torch(F, l_ops)
     xy_b, inf_b = _aff_to_torch(F, r_ops)
-    assert torch.equal(_cpu_jac(F, 2, xy_a, xy_b, inf_a, inf_b),
+    assert torch.equal(_cpu_aff_add(F, xy_a, inf_a, xy_b, inf_b),
                        jc.aff_add(F, xy_a, inf_a, xy_b, inf_b))
 
 

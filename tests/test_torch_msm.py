@@ -1,8 +1,8 @@
 """The port's MSM (zecale_tpu_torch/ec/msm.py) on the CPU, where the
 bucket-reduce wrapper takes its plain version, against the host curve for
 BW6-761 G1/G2 (edge scalars and infinity as tests/test_msm4.py:87), and
-the CPU build of the kernel's device code (csrc/curve.cuh) against that
-plain version.  Tolerance: exact."""
+the CPU build of the kernel's device code (csrc/curve.cuh over
+csrc/field_fast.cuh) against that plain version.  Tolerance: exact."""
 
 import numpy as np
 import pytest
@@ -117,13 +117,15 @@ def _segments_case(curve, g2, seed):
 
 
 def _cpu_kernel(F, pts, ent, seg, b3, affine):
+    """K1's CPU build (the fast core, csrc/host_check.cpp) in the form and
+    threads per segment the wrapper would pick."""
     out = torch.empty((seg.numel() - 1, 3, *F.shape), dtype=torch.int32)
-    p, one, pinv, b3_buf = ct.kernel_consts(F, b3)
-    form = 2 if len(F.shape) == 2 else F.n
-    rc = build.host_check_lib().zt_cpu_bucket_reduce(
-        form, int(affine), pts.data_ptr(), ent.data_ptr(), seg.data_ptr(),
-        seg.numel() - 1, out.data_ptr(), p.ctypes.data, one.ctypes.data,
-        pinv, b3_buf.ctypes.data,
+    form = ct.form_of(F)
+    tpi = build.sum_tpi("bucket_reduce", form, ent.numel())
+    rc = build.host_check_lib().zt_cpu_fast_reduce(
+        {"fq12": 12, "fq24": 24, "fq2": 2}[form], tpi, int(affine),
+        pts.data_ptr(), ent.data_ptr(), seg.data_ptr(), seg.numel() - 1,
+        out.data_ptr(), ct.kernel_consts(F, b3)[3].ctypes.data,
     )
     assert rc == 0
     return out
@@ -135,8 +137,10 @@ def _cpu_kernel(F, pts, ent, seg, b3, affine):
 )
 def test_kernel_device_code_cpu_build_matches_plain(curve, g2):
     """Empty segments, single points, P+P, P+(-P), repeats and random
-    mixes: the kernel's per-thread code, built for the CPU, gives the plain
-    version's limbs; both give the host curve's sums."""
+    mixes: the kernel's device code (csrc/curve.cuh reduce_segment over the
+    fast field core), built for the CPU with the warp's lanes as
+    coroutines, gives the plain version's limbs; both give the host
+    curve's sums."""
     b3 = ct.b3_of(curve, g2)
     F, pts, xy, ent, seg, segs = _segments_case(curve, g2, 17)
     ref = msm.bucket_reduce(xy, ent, seg, F, b3, True)  # CPU: plain

@@ -3,8 +3,9 @@ proj_add, K3 proj_dbl_chain) on the CPU, where the wrappers take their
 plain versions, against the reference's jnp complete projective law
 (ec/msm8.py g1_pcurve8 / g2_pcurve8, ec/curve_jax.py:ProjCurve .add / .dbl)
 for BLS12-377 G1, BW6-761 G1 and G2 and BLS12-377 G2 (Fq2); and the CPU
-build of the kernels' device code (csrc/curve.cuh) against the plain
-versions.  Inputs cover O+O, O+P, P+O, P+P, P+(-P) and Z != 1.
+build of the bucket reduce's device code (csrc/curve.cuh proj_add over
+csrc/field_fast.cuh, as K1 runs it) against the plain versions.  Inputs
+cover O+O, O+P, P+O, P+P, P+(-P) and Z != 1.
 Tolerance: exact -- the projective coordinates themselves must be equal,
 not only the affine points."""
 
@@ -107,21 +108,32 @@ def test_plain_k2_k3_match_jnp_proj_curve(curve, g2):
 
 @pytest.mark.parametrize("curve,g2", GROUPS)
 def test_kernel_device_code_cpu_build_matches_plain(curve, g2):
-    """csrc/curve.cuh's proj_add over field.cuh's types (K1's body), built
-    by g++ for the field form of the group, gives the plain version's
-    limbs.  K3's doubling chain is checked in test_torch_dbl_fast.py."""
+    """csrc/curve.cuh's proj_add as K1 runs it (reduce_segment over the
+    fast field core, projective inputs, built by g++ with the warp's lanes
+    as coroutines, in the form of the group): the sums of the segments
+    [a_i, b_i] give the plain version's limbs, (O + a_i) + b_i.  K2's and
+    K3's device code are checked in test_torch_add_fast.py and
+    test_torch_dbl_fast.py."""
     crv = pc.ProjCurve(curve, g2)
     F, b3 = crv.F, crv.b3
     lhs, rhs = _pairs(curve, g2, 11)
     a, b = _to_torch(F, lhs), _to_torch(F, rhs)
-    form = 2 if g2 and curve == "bls12-377" else F.n
-    p, one, pinv, b3_buf = ct.kernel_consts(F, b3)
+    n = a.shape[0]
+    pts = torch.cat([a, b])
+    ent = torch.stack([torch.arange(n), torch.arange(n, 2 * n)], 1)
+    ent = (ent.reshape(-1) * 2).to(torch.int32)
+    seg = torch.arange(0, 2 * n + 1, 2, dtype=torch.int32)
+    form = ct.form_of(F)
     out = torch.empty_like(a)
-    rc = build.host_check_lib().zt_cpu_proj(
-        form, a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0],
-        p.ctypes.data, one.ctypes.data, pinv, b3_buf.ctypes.data)
+    rc = build.host_check_lib().zt_cpu_fast_reduce(
+        {"fq12": 12, "fq24": 24, "fq2": 2}[form],
+        build.sum_tpi("bucket_reduce", form, ent.numel()), 0, pts.data_ptr(),
+        ent.data_ptr(), seg.data_ptr(), n, out.data_ptr(),
+        ct.kernel_consts(F, b3)[3].ctypes.data)
     assert rc == 0
-    assert torch.equal(out, pc.proj_add(F, a, b, b3))
+    ident = crv.identity_like(a)
+    assert torch.equal(out, pc.proj_add(F, pc.proj_add(F, ident, a, b3), b,
+                                        b3))
 
 
 @pytest.mark.parametrize("curve,g2", [("bls12-377", False),

@@ -1,22 +1,27 @@
 // Group laws for short Weierstrass curves with a = 0, written once over a
-// field type Fld -- Fq<12>, Fq<24> (field.cuh) or Fq2 (field2.cuh) for K1
-// and K6, and the fast core's FqF / Fq2F (field_fast.cuh) for K2-K5:
+// field type Fld: the fast core's FqF / Fq2F (field_fast.cuh) for the
+// kernels K1-K6 in fast_kernels.cu, and field.cuh's Fq<N> / field2.cuh's
+// Fq2 for the CPU tests of the older field code (host_check.cpp):
 //
 //   * the complete projective law (Renes-Costello-Batina 2016, algorithms
-//     7, 8 and 9), shared by the bucket reduce (K1) and the msm8 kernels
-//     (K2 proj_add, K3 proj_dbl_chain in fast_kernels.cu).  Plain PyTorch
-//     twins: ec/curve_torch.py (proj_add, proj_add_mixed, proj_dbl) and
-//     ec/msm.py (bucket_reduce_ref).  b3 = 3b is Fld::B3: a small signed
-//     integer over Fq (3 BLS12-377 G1, -3 BW6-761 G1, 12 BW6-761 G2) or the
-//     Fq2 constant (0, -3/5) of the BLS12-377 G2 twist;
+//     7, 8 and 9), shared by the bucket reduce (K1 bucket_reduce, through
+//     reduce_segment) and the msm8 kernels (K2 proj_add, K3
+//     proj_dbl_chain).  Plain PyTorch twins: ec/curve_torch.py (proj_add,
+//     proj_add_mixed, proj_dbl) and ec/msm.py (bucket_reduce_ref).  b3 =
+//     3b is Fld::B3: a small signed integer over Fq (3 BLS12-377 G1, -3
+//     BW6-761 G1, 12 BW6-761 G2) or the Fq2 constant (0, -3/5) of the
+//     BLS12-377 G2 twist;
 //   * the unified Jacobian law of the JAX package's JacCurve, shared by K4
-//     jac_add, K5 jac_dbl_chain (fast_kernels.cu) and K6 aff_add
-//     (jac_kernels.cu).  Plain PyTorch twins: ec/curve_torch.py (jac_add,
-//     jac_dbl, aff_add).  It needs no curve constant.
+//     jac_add, K5 jac_dbl_chain and K6 aff_add.  Plain PyTorch twins:
+//     ec/curve_torch.py (jac_add, jac_dbl, aff_add).  It needs no curve
+//     constant.
 //
 // The doublings also have a form with the products of each step side by
 // side (proj_dbl_side, jac_dbl_side: field_fast.cuh mul_side_by_side), for
-// a warp that owns one point: K3 and K5 run it.
+// a warp that owns one point: K3 and K5 run it.  Where the field's votes
+// span the whole warp (Fld::kUniform), every thread runs one path: the
+// bucket reduce loops to the longest segment of the warp and selects, and
+// jac_add / aff_add compute every case a warp needs and select.
 #pragma once
 #include "field.cuh"
 #include "field2.cuh"
@@ -26,6 +31,22 @@ template <class Fld>
 struct Proj {
   uint32_t x[Fld::W], y[Fld::W], z[Fld::W];
 };
+
+// r = c ? a : b, word by word; r may alias a or b
+template <class Fld>
+ZT_HD void field_pick(uint32_t* r, bool c, const uint32_t* a,
+                      const uint32_t* b) {
+#pragma unroll
+  for (int j = 0; j < Fld::W; ++j) r[j] = c ? a[j] : b[j];
+}
+
+template <class Fld>
+ZT_HD void point_pick(Proj<Fld>& r, bool c, const Proj<Fld>& a,
+                      const Proj<Fld>& b) {
+  field_pick<Fld>(r.x, c, a.x, b.x);
+  field_pick<Fld>(r.y, c, a.y, b.y);
+  field_pick<Fld>(r.z, c, a.z, b.z);
+}
 
 template <class Fld>
 ZT_HD void proj_identity(Proj<Fld>& r, const typename Fld::Params& F) {
@@ -307,18 +328,6 @@ ZT_HD void jac_dbl_side(Jac<Fld>& r, const Jac<Fld>& p,
   Fld::copy(r.z, z3);
 }
 
-// r = c ? a : b, word by word; r may alias a or b
-template <class Fld>
-ZT_HD void jac_pick(Jac<Fld>& r, bool c, const Jac<Fld>& a,
-                    const Jac<Fld>& b) {
-#pragma unroll
-  for (int j = 0; j < Fld::W; ++j) {
-    r.x[j] = c ? a.x[j] : b.x[j];
-    r.y[j] = c ? a.y[j] : b.y[j];
-    r.z[j] = c ? a.z[j] : b.z[j];
-  }
-}
-
 // jac_add over a field type whose votes span the whole warp
 // (Fld::kUniform): the shuffles of the field ops name every thread of the
 // warp, so all threads run one path.  Each computes the generic sum, and
@@ -330,7 +339,7 @@ ZT_HD void jac_add_warp(Jac<Fld>& r, const Jac<Fld>& p, const Jac<Fld>& q,
   constexpr int W = Fld::W;
   const bool pinf = Fld::is_zero(p.z), qinf = Fld::is_zero(q.z);
   if (Fld::all(pinf || qinf)) {
-    jac_pick<Fld>(r, pinf, q, p);
+    point_pick<Fld>(r, pinf, q, p);
     return;
   }
   Jac<Fld> g, d = p;  // d: the doubling, where any point needs it
@@ -367,9 +376,9 @@ ZT_HD void jac_add_warp(Jac<Fld>& r, const Jac<Fld>& p, const Jac<Fld>& q,
   Fld::mul(s1, s1, z1z1, F);
   Fld::add(s1, s1, s1, F);
   Fld::sub(g.y, u1, s1, F);     // Y3 = r(V - X3) - 2 S1 J
-  jac_pick<Fld>(g, dbl, d, g);
-  jac_pick<Fld>(g, qinf, p, g);
-  jac_pick<Fld>(r, pinf, q, g);
+  point_pick<Fld>(g, dbl, d, g);
+  point_pick<Fld>(g, qinf, p, g);
+  point_pick<Fld>(r, pinf, q, g);
 }
 
 // r = p + q, add-2007-bl (11M + 5S), with dbl-2009-l where P = Q.  r may
@@ -428,6 +437,58 @@ ZT_HD void jac_add(Jac<Fld>& r, const Jac<Fld>& p, const Jac<Fld>& q,
   Fld::copy(r.z, z2z2);
 }
 
+// aff_add over a field type whose votes span the whole warp
+// (Fld::kUniform), as jac_add_warp: each group computes the generic sum,
+// and the doubling of the lifted point too where any point of the warp has
+// P = Q, and selects its own case at the end: the same triples as
+// aff_add's branches.
+template <class Fld>
+ZT_HD void aff_add_warp(Jac<Fld>& r, const uint32_t* x1, const uint32_t* y1,
+                        bool inf1, const uint32_t* x2, const uint32_t* y2,
+                        bool inf2, const typename Fld::Params& F) {
+  constexpr int W = Fld::W;
+  // O + Q is Q's (x, y, 1), P + O is P's, O + O keeps P's x, y with Z = 0
+  Jac<Fld> o;
+  uint32_t z0[W];
+  field_pick<Fld>(o.x, inf1, x2, x1);
+  field_pick<Fld>(o.y, inf1, y2, y1);
+  Fld::one(o.z, F);
+  Fld::zero(z0);
+  field_pick<Fld>(o.z, inf1 && inf2, z0, o.z);
+  if (Fld::all(inf1 || inf2)) {
+    r = o;
+    return;
+  }
+  Jac<Fld> g, d;  // d: the doubling of (x1, y1, 1), where any point needs it
+  uint32_t h[W], ry[W], i4[W], j[W], v[W], t[W];
+  Fld::sub(h, x2, x1, F);
+  Fld::sub(ry, y2, y1, F);
+  const bool hz = Fld::is_zero(h), rz = Fld::is_zero(ry);  // both votes
+  const bool dbl = hz && rz && !inf1 && !inf2;
+  Fld::copy(d.x, x1);
+  Fld::copy(d.y, y1);
+  Fld::one(d.z, F);
+  if (Fld::any(dbl)) jac_dbl<Fld>(d, d, F);
+  Fld::mul(t, h, h, F);
+  Fld::add(t, t, t, F);
+  Fld::add(i4, t, t, F);        // I = 4 H^2
+  Fld::mul(j, h, i4, F);        // J = H I
+  Fld::mul(v, x1, i4, F);       // V = X1 I
+  Fld::add(ry, ry, ry, F);      // r = 2 (Y2 - Y1)
+  Fld::mul(t, ry, ry, F);
+  Fld::sub(t, t, j, F);
+  Fld::sub(t, t, v, F);
+  Fld::sub(g.x, t, v, F);       // X3 = r^2 - J - 2V
+  Fld::sub(v, v, g.x, F);
+  Fld::mul(v, ry, v, F);
+  Fld::mul(j, y1, j, F);
+  Fld::add(j, j, j, F);
+  Fld::sub(g.y, v, j, F);       // Y3 = r(V - X3) - 2 Y1 J
+  Fld::add(g.z, h, h, F);       // Z3 = 2H (0 where P = -Q)
+  point_pick<Fld>(g, dbl, d, g);
+  point_pick<Fld>(r, inf1 || inf2, o, g);
+}
+
 // r = (x1, y1) + (x2, y2) with infinity flags, a Jacobian result:
 // mmadd-2007-bl (4M + 2S), and where P = Q the doubling of (x1, y1, 1),
 // which is mdbl-2007-bl's values.  A point at infinity lifts to Z = 0,
@@ -437,6 +498,10 @@ ZT_HD void aff_add(Jac<Fld>& r, const uint32_t* x1, const uint32_t* y1,
                    bool inf1, const uint32_t* x2, const uint32_t* y2,
                    bool inf2, const typename Fld::Params& F) {
   constexpr int W = Fld::W;
+  if constexpr (Fld::kUniform) {
+    aff_add_warp<Fld>(r, x1, y1, inf1, x2, y2, inf2, F);
+    return;
+  }
   if (inf1 || inf2) {
     const bool take2 = inf1;
     Fld::copy(r.x, take2 ? x2 : x1);
@@ -477,62 +542,48 @@ ZT_HD void aff_add(Jac<Fld>& r, const uint32_t* x1, const uint32_t* y1,
   Fld::add(r.z, h, h, F);       // Z3 = 2H (0 where P = -Q)
 }
 
-// Sum of the points named by ent[lo..hi), starting from (0:1:0), into
-// out[0..3W).  Entry e names point e >> 1, negated when e & 1.  AFFINE
-// points are (x, y) rows of 2W words; otherwise (x, y, z) rows of 3W.
+// The bucket reduce (K1): row s of out is the sum of the points named by
+// ent[seg[s]..seg[s + 1]), starting from (0:1:0).  Entry e names point
+// e >> 1, negated when e & 1.  AFFINE points are (x, y) rows of 2 ROW
+// words, added by proj_add_mixed; otherwise (x, y, z) rows of 3 ROW, added
+// by proj_add.  A group of TPI lanes owns segment s; a group past nseg
+// (the tail of the last block) repeats segment nseg - 1 and stores
+// nothing.  The field's shuffles and votes name the whole warp
+// (Fld::kUniform), so the warp runs one trip count, the length of its
+// longest segment: a group past its own end still adds a valid operand
+// (its last entry again, or point 0 for an empty segment; never the
+// identity, which proj_add_mixed does not take) and keeps its sum by a
+// select.  The negation is computed for every entry and selected, since
+// it holds a vote.
 template <class Fld, bool AFFINE>
 ZT_HD void reduce_segment(uint32_t* out, const uint32_t* pts,
-                          const int32_t* ent, int lo, int hi,
-                          const typename Fld::B3& b3,
+                          const int32_t* ent, const int32_t* seg, int nseg,
+                          long long s, const typename Fld::B3& b3,
                           const typename Fld::Params& F) {
+  static_assert(Fld::kUniform, "one trip count a warp needs the whole warp");
   constexpr int W = Fld::W;
-  Proj<Fld> acc;
+  const int own = (int)(s < nseg ? s : nseg - 1);
+  const int lo = seg[own], len = seg[own + 1] - lo;
+  const int trips = (int)Fld::Lane::warp_max((uint32_t)len);
+  Proj<Fld> acc, t, q;
+  uint32_t ny[W];
   proj_identity<Fld>(acc, F);
-  for (int k = lo; k < hi; ++k) {
-    const int e = ent[k];
-    const uint32_t* src = pts + (size_t)(e >> 1) * (AFFINE ? 2 : 3) * W;
-    Proj<Fld> q;
-    Fld::copy(q.x, src);
-    Fld::copy(q.y, src + W);
-    if (e & 1) Fld::neg(q.y, q.y, F);
-    if (AFFINE) {
-      proj_add_mixed<Fld>(acc, acc, q.x, q.y, b3, F);
+#pragma unroll 1
+  for (int k = 0; k < trips; ++k) {
+    const int e = len > 0 ? ent[lo + (k < len ? k : len - 1)] : 0;
+    const uint32_t* src =
+        pts + (size_t)(e >> 1) * (AFFINE ? 2 : 3) * Fld::ROW;
+    Fld::load(q.x, src, 0);
+    Fld::load(q.y, src, 1);
+    Fld::neg(ny, q.y, F);
+    field_pick<Fld>(q.y, e & 1, ny, q.y);
+    if constexpr (AFFINE) {
+      proj_add_mixed<Fld>(t, acc, q.x, q.y, b3, F);
     } else {
-      Fld::copy(q.z, src + 2 * W);
-      proj_add<Fld>(acc, acc, q, b3, F);
+      Fld::load(q.z, src, 2);
+      proj_add<Fld>(t, acc, q, b3, F);
     }
+    point_pick<Fld>(acc, k < len, t, acc);
   }
-  proj_store<Fld>(out, acc);
+  if (s < nseg) proj_store<Fld>(out + (size_t)s * 3 * Fld::ROW, acc);
 }
-
-// The field type of one build: -DZT_LIMBS=12|24 (Fq) or -DZT_FQ2=1, and
-// the kernel constants as the C launchers receive them (host pointers to
-// the base prime, R mod p and b3: an int32 over Fq, 2 x NB limbs over Fq2).
-template <class Fld>
-typename Fld::Params field_params(const void* p, const void* one,
-                                  unsigned pinv) {
-  typename Fld::Params F;
-  const uint32_t* P = static_cast<const uint32_t*>(p);
-  const uint32_t* O = static_cast<const uint32_t*>(one);
-  for (int i = 0; i < Fld::NB; ++i) {
-    F.p[i] = P[i];
-    F.one[i] = O[i];
-  }
-  F.pinv = pinv;
-  return F;
-}
-
-template <class Fld>
-typename Fld::B3 field_b3(const void* b3) {
-  typename Fld::B3 out;
-  const unsigned char* src = static_cast<const unsigned char*>(b3);
-  unsigned char* dst = reinterpret_cast<unsigned char*>(&out);
-  for (size_t i = 0; i < sizeof(out); ++i) dst[i] = src[i];
-  return out;
-}
-
-#if defined(ZT_FQ2)
-using ZtField = Fq2;
-#elif defined(ZT_LIMBS)
-using ZtField = Fq<ZT_LIMBS>;
-#endif

@@ -1,6 +1,11 @@
-// The kernels on the fast field core (field_fast.cuh), TPI threads per
-// point (K2, K4) or one warp a point (K3, K5):
+// Every kernel of the port, on the fast field core (field_fast.cuh): TPI
+// threads a point or a segment (K1, K2, K4, K6) or one warp a point (K3,
+// K5):
 //
+//   K1 zt_bucket_reduce:  out[s] = the sum of the points named by
+//                         ent[seg[s]..seg[s + 1]), affine rows by the mixed
+//                         RCB add or projective rows by the full one
+//                         (curve.cuh reduce_segment), canonical outputs;
 //   K2 zt_proj_add:       out[i] = p[i] + q[i], the complete RCB add
 //                         (curve.cuh proj_add), canonical outputs;
 //   K3 zt_proj_dbl_chain: out[i] = 2^k p[i], k complete RCB doublings
@@ -9,18 +14,29 @@
 //                         (curve.cuh jac_add), canonical outputs, the
 //                         reference's triple in every case;
 //   K5 zt_jac_dbl_chain:  out[i] = 2^k p[i], k doublings dbl-2009-l
-//                         (curve.cuh jac_dbl_side).
+//                         (curve.cuh jac_dbl_side);
+//   K6 zt_aff_add:        out[i] = a[i] + b[i] for affine (x, y) rows with
+//                         one infinity flag (a byte) per point, a Jacobian
+//                         result (curve.cuh aff_add), the reference's
+//                         triple in every case.
 //
-// Replace zecale_tpu/ec/ec_pallas.py:_KernelFamily.proj_add (573-594),
-// proj_dbl_chain (596-619), jac_add (473-493) and jac_dbl (495) /
-// jac_dbl_chain (514-541).  The TPU kernels transposed a block of points
-// into (ew, bt) limb planes so that the VPU's lanes ran across points.
-// Here a group of TPI neighbouring threads owns one point: each holds a
-// slice of every coordinate and the group law runs in registers.
+// Replace zecale_tpu/ec/msm4.py:bucket_reduce_pallas (543-652) and
+// zecale_tpu/ec/ec_pallas.py:_KernelFamily.proj_add (573-594),
+// proj_dbl_chain (596-619), jac_add (473-493), jac_dbl (495) /
+// jac_dbl_chain (514-541) and aff_add (543-569).  The TPU kernels
+// transposed a block of points into (ew, bt) limb planes so that the VPU's
+// lanes ran across points, and the bucket reduce carried its sums across a
+// sequential grid axis of slot strips over a padded int8 bucket matrix.
+// Here a group of TPI neighbouring threads owns one point or one segment:
+// each holds a slice of every coordinate and the group law runs in
+// registers; a segment's group walks its sorted entries and reads the
+// points straight from the query array, with no bucket matrix and no
+// padding.
 //
 // Bound: operations.  An add is 12 Montgomery products plus two b3
-// multiplies (K2) or 16 products (K4, 11M + 5S); over Fq2 each product is
-// three base products (and K2's twist b3 a full Fq2 product).  A product is
+// multiplies (K2; 11 with Z2 = 1 in K1's mixed add) or 16 products (K4,
+// 11M + 5S; K6 4M + 2S); over Fq2 each product is three base products
+// (and the twist b3 a full Fq2 product).  A product is
 // 2 N^2 32x32-bit multiply-adds, each a lo and a hi instruction, against
 // 9 x 4N bytes of traffic per point: far below the card's memory rate.
 //
@@ -52,6 +68,22 @@
 // The wrappers (ec/proj_curve.py, ec/jac_curve.py) pick TPI by kernel,
 // form and batch size from a table measured on the card
 // (utils/build.py:ADD_TPI).
+//
+// K1 and K6 follow the same design.  K1's group of TPI lanes owns a
+// segment of at most msm.SEG entries and loops over it, one mixed or full
+// add an entry.  Its shuffles and votes name the whole warp, so the warp
+// runs one trip count, its longest segment (a warp-wide max), and a group
+// past its own end adds a valid operand and keeps its sum by a select
+// (curve.cuh reduce_segment).  The MSM's bucket levels (tens of thousands
+// of segments) are throughput-bound like K2's big rounds; its subset-sum
+// levels (hundreds to a few thousand segments of dependent adds) are
+// latency-bound, where more lanes a segment shorten each add.  K6 over
+// lanes computes the generic sum, and the doubling where any point of the
+// warp has P = Q, and selects (curve.cuh aff_add_warp); at one thread a
+// point it keeps the branches of aff_add, as K4 does.  The wrappers
+// (ec/msm.py, ec/jac_curve.py) pick TPI by kernel, form and the launch's
+// entries or batch from a table measured on the card
+// (utils/build.py:SUM_TPI).
 //
 // The doubling chains (K3, K5) are the MSMs' Horner folds: k doublings of
 // one point, each a chain of dependent products (K3: 8 and a b3 multiply
@@ -88,9 +120,11 @@
 #endif
 
 // Uniform: the shuffles and votes of the field ops name the whole warp,
-// which then runs one path: K2, K3 and K5 have no branch on the data, and
-// K4 over lanes takes jac_add_warp (curve.cuh), which selects its case at
-// the end.  At one thread a point K4 keeps the branches of jac_add.
+// which then runs one path: K2, K3 and K5 have no branch on the data, K1
+// loops to the warp's longest segment, and K4 and K6 over lanes take
+// jac_add_warp / aff_add_warp (curve.cuh), which select their case at the
+// end.  At one thread a point K4 and K6 keep the branches of jac_add /
+// aff_add.
 #if defined(ZT_FQ2)
 template <bool Uniform>
 using AddField = Fq2F<ZT_TPI, Uniform>;
@@ -149,6 +183,43 @@ __global__ void __launch_bounds__(kThreads)
   if (g < n) proj_store<Fld>(out + row, a);
 }
 
+// K1: a segment a group, the warp to its longest segment
+template <class Fld, bool AFFINE>
+__global__ void __launch_bounds__(kThreads)
+    bucket_reduce_kernel(const uint32_t* __restrict__ pts,
+                         const int32_t* __restrict__ ent,
+                         const int32_t* __restrict__ seg, int nseg,
+                         uint32_t* __restrict__ out,
+                         typename Fld::B3Arg b3) {
+  const typename Fld::Params F = Fld::params();
+  const typename Fld::B3 B = Fld::b3_lane(b3);
+  reduce_segment<Fld, AFFINE>(out, pts, ent, seg, nseg, group_of<Fld>(), B,
+                              F);
+}
+
+template <class Fld>
+__global__ void __launch_bounds__(kThreads)
+    aff_add_kernel(const uint32_t* __restrict__ a,
+                   const uint8_t* __restrict__ ainf,
+                   const uint32_t* __restrict__ b,
+                   const uint8_t* __restrict__ binf,
+                   uint32_t* __restrict__ out, int n) {
+  constexpr int W = Fld::W;
+  const long long g = group_of<Fld>();
+  if (!Fld::kUniform && g >= n) return;
+  const typename Fld::Params F = Fld::params();
+  const long long i = g < n ? g : n - 1;
+  const size_t row = (size_t)i * 2 * Fld::ROW;
+  uint32_t x1[W], y1[W], x2[W], y2[W];
+  Fld::load(x1, a + row, 0);
+  Fld::load(y1, a + row, 1);
+  Fld::load(x2, b + row, 0);
+  Fld::load(y2, b + row, 1);
+  Jac<Fld> r;
+  aff_add<Fld>(r, x1, y1, ainf[i] != 0, x2, y2, binf[i] != 0, F);
+  if (g < n) proj_store<Fld>(out + (size_t)i * 3 * Fld::ROW, r);
+}
+
 // K3 and K5: 2^k p[i], one warp a point, the products of each step side
 // by side
 __device__ __forceinline__ long long warp_of() {
@@ -193,7 +264,24 @@ int blocks_for(int n, int per = ZT_TPI) {
 }  // namespace
 
 // b3: the kernel's b3 bytes (an int32 over Fq, 2 x 12 Montgomery limbs over
-// Fq2), as ec/curve_torch.py:kernel_consts gives them
+// Fq2), as ec/curve_torch.py:kernel_consts gives them.  affine: 1 for (x,
+// y) rows added by the mixed add, 0 for (x, y, z) rows.
+extern "C" int zt_bucket_reduce(const void* pts, const void* ent,
+                                const void* seg, int nseg, void* out,
+                                int affine, const void* b3, void* stream) {
+  if (nseg <= 0) return 0;
+  using Fld = AddField<true>;
+  typename Fld::B3Arg b3v;
+  memcpy(&b3v, b3, sizeof(b3v));
+  auto* kernel = affine ? bucket_reduce_kernel<Fld, true>
+                        : bucket_reduce_kernel<Fld, false>;
+  kernel<<<blocks_for(nseg), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(pts), static_cast<const int32_t*>(ent),
+      static_cast<const int32_t*>(seg), nseg, static_cast<uint32_t*>(out),
+      b3v);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int zt_proj_add(const void* p, const void* q, void* out, int n,
                            const void* b3, void* stream) {
   if (n <= 0) return 0;
@@ -235,5 +323,17 @@ extern "C" int zt_jac_dbl_chain(const void* p, void* out, int n, int k,
   jac_dbl_chain_kernel<AddField<true>>
       <<<blocks_for(n, 32), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const uint32_t*>(p), static_cast<uint32_t*>(out), n, k);
+  return (int)cudaGetLastError();
+}
+
+// ainf, binf: one byte a point (a torch bool tensor)
+extern "C" int zt_aff_add(const void* a, const void* ainf, const void* b,
+                          const void* binf, void* out, int n, void* stream) {
+  if (n <= 0) return 0;
+  aff_add_kernel<AddField<(ZT_TPI > 1)>>
+      <<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const uint32_t*>(a), static_cast<const uint8_t*>(ainf),
+          static_cast<const uint32_t*>(b), static_cast<const uint8_t*>(binf),
+          static_cast<uint32_t*>(out), n);
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,8 @@
-// The Montgomery field core of the kernels in fast_kernels.cu (K2
-// proj_add, K3 proj_dbl_chain, K4 jac_add, K5 jac_dbl_chain):
-// FqF<M, TPI, Uniform> over a modulus M fixed at compile time, and
-// Fq2F<TPI, Uniform> over it.  The other kernels (K1, K6) stay on
-// field.cuh's Fq<N> and field2.cuh's Fq2.
+// The Montgomery field core of every kernel, all in fast_kernels.cu (K1
+// bucket_reduce, K2 proj_add, K3 proj_dbl_chain, K4 jac_add, K5
+// jac_dbl_chain, K6 aff_add): FqF<M, TPI, Uniform> over a modulus M fixed
+// at compile time, and Fq2F<TPI, Uniform> over it.  field.cuh's Fq<N> and
+// field2.cuh's Fq2 are left to the CPU tests of the older field code.
 //
 //   * The moduli are compile-time constants (Bls377Fq, Bw6Fq below): every
 //     limb of p is an immediate of the instruction that uses it, and no
@@ -261,15 +261,17 @@ ZT_HD uint32_t mul_hi(uint32_t a, uint32_t b) {
 // Under g++: host_check.cpp runs the ``width`` lanes of an emulated warp
 // (one group, or 32 lanes) and installs zt_lane_emu: ``lane`` is this
 // lane's index in the warp, and exchange() deposits its word and returns
-// every lane's word of the same call.  Under nvcc's host pass these paths
-// are never taken.
+// every lane's word of the same call; ``site``, the code address the
+// exchange was made from, lets it check that the lanes run in step.  Under
+// nvcc's host pass these paths are never taken.
 
 #if !defined(__CUDACC__)
 struct ZtLaneEmu {
   int lane = 0;
   int width = 1;
   void* ctx = nullptr;
-  void (*exchange)(void* ctx, int lane, uint32_t v, uint32_t* all) = nullptr;
+  void (*exchange)(void* ctx, int lane, uint32_t v, uint32_t* all,
+                   const void* site) = nullptr;
 };
 inline thread_local ZtLaneEmu zt_lane_emu;
 #endif
@@ -316,8 +318,9 @@ struct Lanes {
   }
 #elif !defined(__CUDACC__)
   // out[i]: the word of lane i of the emulated warp, for i < width
-  static void exchange(uint32_t v, uint32_t* out) {
-    zt_lane_emu.exchange(zt_lane_emu.ctx, zt_lane_emu.lane, v, out);
+  __attribute__((noinline)) static void exchange(uint32_t v, uint32_t* out) {
+    zt_lane_emu.exchange(zt_lane_emu.ctx, zt_lane_emu.lane, v, out,
+                         __builtin_return_address(0));
   }
   static int base() { return zt_lane_emu.lane & ~(TPI - 1); }
 #endif
@@ -414,6 +417,21 @@ struct Lanes {
     if constexpr (Uniform) return warp_votes(f) == zt_lane_emu.width;
 #endif
     return ballot(f) == kBits;
+  }
+  // the largest v of the warp (Uniform): one trip count for a warp whose
+  // groups loop over runs of different lengths (the bucket reduce)
+  ZT_HD static uint32_t warp_max(uint32_t v) {
+    static_assert(Uniform, "a warp-wide reduction needs the whole warp");
+#if defined(__CUDA_ARCH__)
+    return __reduce_max_sync(0xffffffffu, v);
+#elif defined(__CUDACC__)
+    return v;
+#else
+    uint32_t w[32];
+    exchange(v, w);
+    for (int i = 0; i < zt_lane_emu.width; ++i) v = w[i] > v ? w[i] : v;
+    return v;
+#endif
   }
 #if !defined(__CUDACC__)
   // the number of lanes of the emulated warp whose flag holds

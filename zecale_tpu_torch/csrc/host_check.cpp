@@ -7,9 +7,11 @@
 // Fq<12> / Fq<24> (or FqF over BLS12-377 / BW6-761 Fq), 2 is Fq2 over 12
 // limbs (or Fq2F).  ``b3`` points to the kernel's b3 bytes (an int32 over
 // Fq, 2 x 12 Montgomery limbs over Fq2).  The fast core's entries take
-// ``tpi`` too: with TPI > 1 the TPI lanes of a group, and for K3 and K5
-// the 32 lanes of a warp, run as coroutines of one thread
-// that exchange words in the order a warp's shuffles and ballots would.
+// ``tpi`` too: with TPI > 1 the TPI lanes of a group, and for K1, K3, K5
+// and K6 over lanes the 32 lanes of a warp, run as coroutines of one
+// thread that exchange words in the order a warp's shuffles and ballots
+// would.  The entries over field.cuh's types (zt_cpu_fp_mul, zt_cpu_jac)
+// test the older field code, which no kernel runs.
 #include <string.h>
 #include <ucontext.h>
 
@@ -28,68 +30,39 @@ void mul_batch(uint32_t* r, const uint32_t* a, const uint32_t* b, long n,
     Fld::mul(r + i * Fld::W, a + i * Fld::W, b + i * Fld::W, F);
 }
 
+// op 0: out = p + q (K4's law); op 1: out = 2^k p (K5's)
 template <class Fld>
-void reduce_batch(int affine, const uint32_t* pts, const int32_t* ent,
-                  const int32_t* seg, int nseg, uint32_t* out,
-                  const typename Fld::B3& b3, const typename Fld::Params& F) {
-  for (int s = 0; s < nseg; ++s) {
-    uint32_t* o = out + (size_t)s * 3 * Fld::W;
-    if (affine)
-      reduce_segment<Fld, true>(o, pts, ent, seg[s], seg[s + 1], b3, F);
-    else
-      reduce_segment<Fld, false>(o, pts, ent, seg[s], seg[s + 1], b3, F);
-  }
-}
-
-// out = p + q, curve.cuh proj_add over field.cuh's types (K1's body)
-template <class Fld>
-void proj_batch(const uint32_t* p, const uint32_t* q, uint32_t* out, long n,
-                const typename Fld::B3& b3, const typename Fld::Params& F) {
-  for (long i = 0; i < n; ++i) {
-    const size_t row = (size_t)i * 3 * Fld::W;
-    Proj<Fld> a, b;
-    proj_load<Fld>(a, p + row);
-    proj_load<Fld>(b, q + row);
-    proj_add<Fld>(a, a, b, b3, F);
-    proj_store<Fld>(out + row, a);
-  }
-}
-
-// op 0: out = p + q (K4); op 1: out = 2^k p (K5); op 2: out = a + b for
-// affine rows a, b with byte infinity flags ainf, binf (K6)
-template <class Fld>
-void jac_batch(int op, const uint32_t* a, const uint8_t* ainf,
-               const uint32_t* b, const uint8_t* binf, uint32_t* out, long n,
-               int k, const typename Fld::Params& F) {
+void jac_batch(int op, const uint32_t* a, const uint32_t* b, uint32_t* out,
+               long n, int k, const typename Fld::Params& F) {
   constexpr int W = Fld::W;
   for (long i = 0; i < n; ++i) {
     Jac<Fld> p, q;
-    if (op == 2) {
-      const size_t row = (size_t)i * 2 * W;
-      aff_add<Fld>(p, a + row, a + row + W, ainf[i] != 0, b + row,
-                   b + row + W, binf[i] != 0, F);
+    proj_load<Fld>(p, a + (size_t)i * 3 * W);
+    if (op == 0) {
+      proj_load<Fld>(q, b + (size_t)i * 3 * W);
+      jac_add<Fld>(p, p, q, F);
     } else {
-      proj_load<Fld>(p, a + (size_t)i * 3 * W);
-      if (op == 0) {
-        proj_load<Fld>(q, b + (size_t)i * 3 * W);
-        jac_add<Fld>(p, p, q, F);
-      } else {
-        for (int j = 0; j < k; ++j) jac_dbl<Fld>(p, p, F);
-      }
+      for (int j = 0; j < k; ++j) jac_dbl<Fld>(p, p, F);
     }
     proj_store<Fld>(out + (size_t)i * 3 * W, p);
   }
 }
 
+// The constants of field.cuh's types, as the tests pass them: host
+// pointers to the base prime and R mod p, and -p^-1 mod 2^32
 template <class Fld>
-struct Args {
+typename Fld::Params field_params(const void* p, const void* one,
+                                  unsigned pinv) {
   typename Fld::Params F;
-  typename Fld::B3 b3;
-  Args(const void* p, const void* one, unsigned pinv, const void* b3v)
-      : F(field_params<Fld>(p, one, pinv)), b3() {
-    if (b3v) b3 = field_b3<Fld>(b3v);
+  const uint32_t* P = static_cast<const uint32_t*>(p);
+  const uint32_t* O = static_cast<const uint32_t*>(one);
+  for (int i = 0; i < Fld::NB; ++i) {
+    F.p[i] = P[i];
+    F.one[i] = O[i];
   }
-};
+  F.pinv = pinv;
+  return F;
+}
 
 // Calls fn.template operator()<Fld>() for the field type of ``form``.
 template <class Fn>
@@ -108,24 +81,42 @@ int dispatch(int form, Fn&& fn) {
 // its word and yields, so a lane resumed has every lane's word of its
 // exchange.  Two banks of slots, used in turn, keep the words of one
 // exchange until the last lane has read them: lane 0 deposits its next
-// word while lanes above it have still to read.  Every lane makes the
-// same exchanges (the kernels run one path a warp).
+// word while lanes above it have still to read.  Every lane must make the
+// same exchanges (the kernels run one path a warp, and a shuffle or vote
+// that names the whole warp hangs or reads garbage on the card where one
+// does not): each exchange checks that every lane is at it, made from the
+// same code address, and a lane out of step sets lanes_diverged, which the
+// entries below report.
+thread_local bool lanes_diverged = false;
+
 struct LaneSet {
   static constexpr size_t kStack = 256 << 10;
   int width;
   uint32_t slots[2][32] = {};
+  const void* sites[2][32] = {};
   unsigned calls[32] = {};
   bool done[32] = {};
   ucontext_t sched, ctx[32];
   void (*call)(void*) = nullptr;
   void* body = nullptr;
 
-  static void exchange(void* c, int lane, uint32_t v, uint32_t* all) {
+  static void exchange(void* c, int lane, uint32_t v, uint32_t* all,
+                       const void* site) {
     LaneSet& S = *static_cast<LaneSet*>(c);
-    uint32_t* slot = S.slots[S.calls[lane]++ & 1];
+    const unsigned k = ++S.calls[lane];
+    uint32_t* slot = S.slots[k & 1];
     slot[lane] = v;
+    S.sites[k & 1][lane] = site;
     swapcontext(&S.ctx[lane], &S.sched);
-    for (int i = 0; i < S.width; ++i) all[i] = slot[i];
+    // lanes resumed before this one have gone on to their next exchange
+    // or ended; the others wait at this one
+    for (int i = 0; i < S.width; ++i) {
+      const bool at = i < lane ? S.calls[i] == k + 1 ||
+                                     (S.calls[i] == k && S.done[i])
+                               : S.calls[i] == k && !S.done[i];
+      lanes_diverged |= !at || S.sites[k & 1][i] != site;
+      all[i] = slot[i];
+    }
   }
 
   static void entry() {
@@ -137,7 +128,9 @@ struct LaneSet {
 };
 
 // the one lane of a width-1 warp
-void exchange_alone(void*, int, uint32_t v, uint32_t* all) { all[0] = v; }
+void exchange_alone(void*, int, uint32_t v, uint32_t* all, const void*) {
+  all[0] = v;
+}
 
 // body() once per lane of a warp of ``width`` lanes (1, TPI or 32)
 template <class Fn>
@@ -168,6 +161,8 @@ void run_lanes(int width, Fn body) {
       live += !S.done[l];
     }
   }
+  for (int l = 1; l < width; ++l)
+    lanes_diverged |= S.calls[l] != S.calls[0];
 }
 
 // op 0: r = a b, 1: a + b, 2: a - b, 3: -a; rows of Fld::ROW words
@@ -239,6 +234,54 @@ void fast_dbl_batch(int kind, const uint32_t* pp, uint32_t* out, long n,
   });
 }
 
+// K1 over the fast core, as fast_kernels.cu builds it (Uniform): the
+// segments in warps of 32 / TPI groups, each warp's 32 lanes run together
+template <class Fld>
+void fast_reduce_batch(int affine, const uint32_t* pts, const int32_t* ent,
+                       const int32_t* seg, int nseg, uint32_t* out,
+                       const void* b3) {
+  typename Fld::B3Arg b3v;
+  memcpy(&b3v, b3, sizeof(b3v));
+  constexpr int G = 32 / Fld::kTpi;
+  const long long warps = (nseg + G - 1) / G;
+  run_lanes(32, [&] {
+    const typename Fld::Params F = Fld::params();
+    const typename Fld::B3 B = Fld::b3_lane(b3v);
+    for (long long w = 0; w < warps; ++w) {
+      const long long s = w * G + Fld::Lane::group();
+      if (affine)
+        reduce_segment<Fld, true>(out, pts, ent, seg, nseg, s, B, F);
+      else
+        reduce_segment<Fld, false>(out, pts, ent, seg, nseg, s, B, F);
+    }
+  });
+}
+
+// K6 over the fast core, as fast_kernels.cu builds it: over lanes a warp
+// of 32 / TPI points at a time (Uniform, the tail repeating the last
+// point), at one thread a point alone (branches)
+template <class Fld>
+void fast_aff_batch(const uint32_t* a, const uint8_t* ainf, const uint32_t* b,
+                    const uint8_t* binf, uint32_t* out, long n) {
+  constexpr int W = Fld::W, G = Fld::kUniform ? 32 / Fld::kTpi : 1;
+  run_lanes(G * Fld::kTpi, [&] {
+    const typename Fld::Params F = Fld::params();
+    for (long w = 0; w < (n + G - 1) / G; ++w) {
+      const long g = w * G + (G > 1 ? Fld::Lane::group() : 0);
+      const long i = g < n ? g : n - 1;
+      const size_t row = (size_t)i * 2 * Fld::ROW;
+      uint32_t x1[W], y1[W], x2[W], y2[W];
+      Fld::load(x1, a + row, 0);
+      Fld::load(y1, a + row, 1);
+      Fld::load(x2, b + row, 0);
+      Fld::load(y2, b + row, 1);
+      Jac<Fld> r;
+      aff_add<Fld>(r, x1, y1, ainf[i] != 0, x2, y2, binf[i] != 0, F);
+      if (g < n) proj_store<Fld>(out + (size_t)i * 3 * Fld::ROW, r);
+    }
+  });
+}
+
 // Calls fn.template operator()<Fld>() for the fast field type of (form,
 // tpi), with the kernels' vote span: warp-wide (Uniform) for K2 and for K4
 // over lanes, as fast_kernels.cu builds them; a group here is the warp.
@@ -258,6 +301,15 @@ int dispatch_fast_u(int form, int tpi, Fn&& fn) {
   return 1;
 }
 
+// rc of a fast-core entry: 1 for a (form, TPI) that is not built, 2 where
+// the lanes of an emulated warp fell out of step
+template <class Go>
+int checked(Go&& go) {
+  lanes_diverged = false;
+  const int rc = go();
+  return rc ? rc : lanes_diverged ? 2 : 0;
+}
+
 template <class Fn>
 int dispatch_fast(int form, int tpi, bool uniform, Fn&& fn) {
   return uniform ? dispatch_fast_u<true>(form, tpi, fn)
@@ -271,62 +323,39 @@ extern "C" int zt_cpu_fp_mul(int form, uint32_t* r, const uint32_t* a,
                              const uint32_t* one, unsigned pinv) {
   return dispatch(form, [&](auto* tag) {
     using Fld = std::remove_pointer_t<decltype(tag)>;
-    Args<Fld> A(p, one, pinv, nullptr);
-    mul_batch<Fld>(r, a, b, n, A.F);
-  });
-}
-
-extern "C" int zt_cpu_bucket_reduce(int form, int affine,
-                                    const uint32_t* pts, const int32_t* ent,
-                                    const int32_t* seg, int nseg,
-                                    uint32_t* out, const uint32_t* p,
-                                    const uint32_t* one, unsigned pinv,
-                                    const void* b3) {
-  return dispatch(form, [&](auto* tag) {
-    using Fld = std::remove_pointer_t<decltype(tag)>;
-    Args<Fld> A(p, one, pinv, b3);
-    reduce_batch<Fld>(affine, pts, ent, seg, nseg, out, A.b3, A.F);
-  });
-}
-
-extern "C" int zt_cpu_proj(int form, const uint32_t* pp, const uint32_t* q,
-                           uint32_t* out, long n, const uint32_t* p,
-                           const uint32_t* one, unsigned pinv,
-                           const void* b3) {
-  return dispatch(form, [&](auto* tag) {
-    using Fld = std::remove_pointer_t<decltype(tag)>;
-    Args<Fld> A(p, one, pinv, b3);
-    proj_batch<Fld>(pp, q, out, n, A.b3, A.F);
+    mul_batch<Fld>(r, a, b, n, field_params<Fld>(p, one, pinv));
   });
 }
 
 extern "C" int zt_cpu_jac(int form, int op, const uint32_t* a,
-                          const uint8_t* ainf, const uint32_t* b,
-                          const uint8_t* binf, uint32_t* out, long n, int k,
+                          const uint32_t* b, uint32_t* out, long n, int k,
                           const uint32_t* p, const uint32_t* one,
                           unsigned pinv) {
   return dispatch(form, [&](auto* tag) {
     using Fld = std::remove_pointer_t<decltype(tag)>;
-    Args<Fld> A(p, one, pinv, nullptr);
-    jac_batch<Fld>(op, a, ainf, b, binf, out, n, k, A.F);
+    jac_batch<Fld>(op, a, b, out, n, k, field_params<Fld>(p, one, pinv));
   });
 }
 
 extern "C" int zt_cpu_fast_field(int form, int tpi, int op, uint32_t* r,
                                  const uint32_t* a, const uint32_t* b,
                                  long n) {
-  return dispatch_fast(form, tpi, false, [&](auto* tag) {
-    using Fld = std::remove_pointer_t<decltype(tag)>;
-    fast_field_batch<Fld>(op, r, a, b, n);
+  return checked([&] {
+    return dispatch_fast(form, tpi, false, [&](auto* tag) {
+      using Fld = std::remove_pointer_t<decltype(tag)>;
+      fast_field_batch<Fld>(op, r, a, b, n);
+    });
   });
 }
 
 extern "C" int zt_cpu_fast_add(int form, int tpi, int kind, const uint32_t* p,
                                const uint32_t* q, uint32_t* out, long n,
                                const void* b3) {
-  return dispatch_fast(form, tpi, kind == 0 || tpi > 1, [&](auto* tag) {
-    using Fld = std::remove_pointer_t<decltype(tag)>;
-    fast_add_batch<Fld>(kind, p, q, out, n, b3);
+  return checked([&] {
+    return dispatch_fast(form, tpi, kind == 0 || tpi > 1, [&](auto* tag) {
+      using Fld = std::remove_pointer_t<decltype(tag)>;
+      fast_add_batch<Fld>(kind, p, q, out, n, b3);
+    });
   });
 }
 
@@ -334,9 +363,40 @@ extern "C" int zt_cpu_fast_add(int form, int tpi, int kind, const uint32_t* p,
 // builds them (Uniform, one warp a point)
 extern "C" int zt_cpu_fast_dbl(int form, int tpi, int kind, const uint32_t* p,
                                uint32_t* out, long n, int k, const void* b3) {
-  return dispatch_fast_u<true>(form, tpi, [&](auto* tag) {
-    using Fld = std::remove_pointer_t<decltype(tag)>;
-    fast_dbl_batch<Fld>(kind, p, out, n, k, b3);
+  return checked([&] {
+    return dispatch_fast_u<true>(form, tpi, [&](auto* tag) {
+      using Fld = std::remove_pointer_t<decltype(tag)>;
+      fast_dbl_batch<Fld>(kind, p, out, n, k, b3);
+    });
+  });
+}
+
+// K1 over the fast core in the form and TPI of a kernel variant; affine
+// as zt_bucket_reduce takes it
+extern "C" int zt_cpu_fast_reduce(int form, int tpi, int affine,
+                                  const uint32_t* pts, const int32_t* ent,
+                                  const int32_t* seg, int nseg, uint32_t* out,
+                                  const void* b3) {
+  if (nseg <= 0) return 0;
+  return checked([&] {
+    return dispatch_fast_u<true>(form, tpi, [&](auto* tag) {
+      using Fld = std::remove_pointer_t<decltype(tag)>;
+      fast_reduce_batch<Fld>(affine, pts, ent, seg, nseg, out, b3);
+    });
+  });
+}
+
+// K6 over the fast core in the form and TPI of a kernel variant
+extern "C" int zt_cpu_fast_aff_add(int form, int tpi, const uint32_t* a,
+                                   const uint8_t* ainf, const uint32_t* b,
+                                   const uint8_t* binf, uint32_t* out,
+                                   long n) {
+  if (n <= 0) return 0;
+  return checked([&] {
+    return dispatch_fast(form, tpi, tpi > 1, [&](auto* tag) {
+      using Fld = std::remove_pointer_t<decltype(tag)>;
+      fast_aff_batch<Fld>(a, ainf, b, binf, out, n);
+    });
   });
 }
 

@@ -16,9 +16,10 @@ torch.
     replaces ``_KernelFamily.jac_dbl`` (495) and ``jac_dbl_chain`` (514):
     2^k P by k doublings in one launch, on the fast field core, one warp
     a point (TPI from ``utils/build.py:DBL_TPI``, as K3's);
-  * K6 ``aff_add`` (``csrc/jac_kernels.cu`` zt_aff_add) replaces
+  * K6 ``aff_add`` (``csrc/fast_kernels.cu`` zt_aff_add) replaces
     ``_KernelFamily.aff_add`` (543-569): affine + affine with per-point
-    infinity flags, a Jacobian result.
+    infinity flags, a Jacobian result, on the fast field core (TPI from
+    ``utils/build.py:SUM_TPI`` by form and batch size).
 
 ``add_mixed`` runs as K4 on the lifted affine point (Z = 1, or Z = 0 where
 it is at infinity): madd-2007-bl equals add-2007-bl at Z2 = 1 in every
@@ -41,7 +42,8 @@ import torch
 
 from ..ff import params as P
 from . import curve_torch as ct
-from .proj_curve import check_points, launch, launch_add, launch_dbl
+from .proj_curve import (aligned, check_points, fast_form, launch_add,
+                         launch_dbl, launch_fast)
 
 
 def _count(fn, F) -> None:
@@ -93,10 +95,30 @@ def aff_add(F, a: torch.Tensor, a_inf: torch.Tensor, b: torch.Tensor,
             b_inf: torch.Tensor) -> torch.Tensor:
     """a + b for equal-shape affine batches with infinity masks, as
     Jacobian points (K6)."""
+    return aff_add_tpi(F, a, a_inf, b, b_inf, None)
+
+
+def aff_add_tpi(F, a: torch.Tensor, a_inf: torch.Tensor, b: torch.Tensor,
+                b_inf: torch.Tensor, tpi) -> torch.Tensor:
+    """``aff_add`` with K6's threads per point set to ``tpi`` (None: the
+    SUM_TPI table's)."""
     if a.device.type == "cpu":
         return ct.aff_add(F, a, a_inf, b, b_inf)
     if a.device.type != "cuda":
         raise ValueError(f"aff_add: unsupported device {a.device}")
+    out = launch_aff(F, a, a_inf, b, b_inf, tpi)
+    if out.numel():
+        _count(aff_add, F)
+    return out
+
+
+def launch_aff(F, a, a_inf, b, b_inf, tpi) -> torch.Tensor:
+    """a + b by K6 (``csrc/fast_kernels.cu`` zt_aff_add) with ``tpi``
+    threads a point (None: the SUM_TPI table's pick for the batch).  Raise
+    unless the shapes match, the inputs are contiguous on one device and F
+    is the field the form was built for, or on a CUDA error."""
+    from ..utils.build import sum_tpi
+
     lead = a.shape[: a.dim() - 1 - len(F.shape)]
     if b.shape != a.shape or a_inf.shape != lead or b_inf.shape != lead:
         raise ValueError(f"aff_add: shapes {tuple(a.shape)}, "
@@ -108,13 +130,16 @@ def aff_add(F, a: torch.Tensor, a_inf: torch.Tensor, b: torch.Tensor,
                 or not m.is_contiguous()):
             raise ValueError("aff_add: masks must be contiguous bool on "
                              f"{a.device}, got {m.dtype} on {m.device}")
+    form = fast_form("aff_add", F)
+    a, b = aligned(a), aligned(b)
     out = torch.empty(*lead, 3, *F.shape, dtype=torch.int32, device=a.device)
     n = math.prod(lead)
     if n:
-        launch("aff_add", "zt_aff_add", F, out, a.data_ptr(),
-               a_inf.data_ptr(), b.data_ptr(), b_inf.data_ptr(),
-               out.data_ptr(), n)
-        _count(aff_add, F)
+        if tpi is None:
+            tpi = sum_tpi("aff_add", form, n)
+        launch_fast("aff_add", "zt_aff_add", (form, tpi), out, a.data_ptr(),
+                    a_inf.data_ptr(), b.data_ptr(), b_inf.data_ptr(),
+                    out.data_ptr(), n)
     return out
 
 

@@ -13,9 +13,11 @@ design for the GPU rather than a translation:
      overflow layers, sub-lane calibration or per-window-group dispatch
      that msm4 needs for the TPU's fixed shapes;
   3. the bucket sums come from the hand-written kernel ``bucket_reduce``
-     (``csrc/bucket_reduce.cu``): runs are cut into segments of at most
-     ``SEG`` entries, one thread per segment, and the segment partials of
-     a bucket are summed by further launches until one partial is left;
+     (``csrc/fast_kernels.cu`` zt_bucket_reduce, on the fast field core):
+     runs are cut into segments of at most ``SEG`` entries, TPI threads a
+     segment (TPI from ``utils/build.py:SUM_TPI`` by form and the
+     launch's entries), and the segment partials of a bucket are summed
+     by further launches until one partial is left;
   4. the weighted sum sum_b b*B_b of each window is rewritten as
      sum_k 2^k * (sum of the buckets whose index has bit k set): those
      subset sums are more segment sums for the same kernel (W*c of them,
@@ -38,10 +40,11 @@ import torch
 from ..ec import host_curve as hc
 from ..ff import params as P
 from . import curve_torch as ct
+from . import proj_curve as pc
 
-#: most entries one kernel thread sums: long runs (bit-heavy witness
-#: scalars put ~half the points into bucket 1 of window 0) are split so that
-#: no thread serialises the MSM
+#: most entries one segment of the kernel sums: long runs (bit-heavy
+#: witness scalars put ~half the points into bucket 1 of window 0) are
+#: split so that no segment serialises the MSM
 SEG = 32
 
 
@@ -104,40 +107,52 @@ def bucket_reduce(pts, ent, seg, F, b3, affine: bool):
     Montgomery rows over Fq or Fq2; ``ent``: int32 entries (point index <<
     1 | negate); ``seg``: (nseg + 1,) int32 offsets into ``ent``.  CPU
     tensors take the plain version; CUDA tensors launch
-    ``csrc/bucket_reduce.cu`` in the field's form."""
+    ``csrc/fast_kernels.cu`` zt_bucket_reduce in the field's form."""
+    return bucket_reduce_tpi(pts, ent, seg, F, b3, affine, None)
+
+
+def bucket_reduce_tpi(pts, ent, seg, F, b3, affine: bool, tpi):
+    """``bucket_reduce`` with K1's threads per segment set to ``tpi``
+    (None: the SUM_TPI table's pick for the launch's entries)."""
     if pts.device.type == "cpu":
         return bucket_reduce_ref(pts, ent, seg, F, b3, affine)
     if pts.device.type != "cuda":
         raise ValueError(f"bucket_reduce: unsupported device {pts.device}")
-    for name, t, dt in (("pts", pts, torch.int32), ("ent", ent, torch.int32),
-                        ("seg", seg, torch.int32)):
-        if t.device != pts.device or t.dtype != dt or not t.is_contiguous():
+    out = launch_reduce(pts, ent, seg, F, b3, affine, tpi)
+    if out.numel():
+        bucket_reduce.launches += 1
+        bucket_reduce.launches_by_form[ct.form_of(F)] += 1
+    return out
+
+
+def launch_reduce(pts, ent, seg, F, b3, affine: bool, tpi):
+    """The segment sums by K1 (``csrc/fast_kernels.cu`` zt_bucket_reduce)
+    with ``tpi`` threads a segment (None: the SUM_TPI table's pick for the
+    launch's entries, ``ent.numel()``).
+    Raise unless the inputs are contiguous int32 on one device and F is
+    the field the form was built for, or on a CUDA error."""
+    from ..utils.build import sum_tpi
+
+    for name, t in (("ent", ent), ("seg", seg)):
+        if (t.device != pts.device or t.dtype != torch.int32
+                or not t.is_contiguous()):
             raise ValueError(
-                f"bucket_reduce: {name} must be contiguous {dt} on "
+                f"bucket_reduce: {name} must be contiguous int32 on "
                 f"{pts.device}, got {t.dtype} on {t.device}"
             )
-    width = 2 if affine else 3
-    if tuple(pts.shape[1:]) != (width, *F.shape):
-        raise ValueError(f"bucket_reduce: pts shape {tuple(pts.shape)}")
-    from ..utils.build import cuda_kernels
-
+    pc.check_points("bucket_reduce", F, pts, width=2 if affine else 3)
+    form = pc.fast_form("bucket_reduce", F)
+    pts = pc.aligned(pts)
     nseg = seg.numel() - 1
     out = torch.empty((max(nseg, 0), 3, *F.shape), dtype=torch.int32,
                       device=pts.device)
-    if nseg <= 0:
-        return out
-    form = ct.form_of(F)
-    p, one, pinv, b3_buf = ct.kernel_consts(F, b3)
-    launch = cuda_kernels()[("zt_bucket_reduce", (form, int(affine)))]
-    rc = launch(
-        pts.data_ptr(), ent.data_ptr(), seg.data_ptr(), nseg, out.data_ptr(),
-        p.ctypes.data, one.ctypes.data, pinv, b3_buf.ctypes.data,
-        torch.cuda.current_stream(pts.device).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"bucket_reduce launch failed: CUDA error {rc}")
-    bucket_reduce.launches += 1
-    bucket_reduce.launches_by_form[form] += 1
+    if nseg > 0:
+        if tpi is None:
+            tpi = sum_tpi("bucket_reduce", form, ent.numel())
+        pc.launch_fast("bucket_reduce", "zt_bucket_reduce", (form, tpi), out,
+                       pts.data_ptr(), ent.data_ptr(), seg.data_ptr(), nseg,
+                       out.data_ptr(), int(affine),
+                       ct.kernel_consts(F, b3)[3].ctypes.data)
     return out
 
 
@@ -228,6 +243,22 @@ def bucket_entries(scal, inf, nbits: int, c: int):
     return ent, counts
 
 
+def subset_entries(W: int, c: int, dev):
+    """Entries and run lengths of the W*c subset sums S[w, k] = sum of the
+    buckets B[w, b], b in 1..2^(c-1), whose index b has bit k set: run
+    w*c + k names the bucket rows w*K + b - 1 (K = 2^(c-1))."""
+    K = 1 << (c - 1)
+    bvals = torch.arange(1, K + 1, device=dev)
+    sel = [((bvals >> k) & 1).nonzero().squeeze(-1) for k in range(c)]
+    ent = torch.cat(
+        [(w * K + s) * 2 for w in range(W) for s in sel]
+    ).to(torch.int32)
+    counts = torch.tensor(
+        [s.numel() for _ in range(W) for s in sel], device=dev
+    )
+    return ent, counts
+
+
 def host_curve(curve_name: str, g2: bool):
     return hc.g2_curve(curve_name) if g2 else hc.g1_curve(curve_name)
 
@@ -248,21 +279,11 @@ def msm(curve_name: str, g2: bool, scal, xy, inf, c: int = 0):
     nbits = P.CURVES[curve_name].r.bit_length()
     c = c or default_window(n)
     W = num_windows(nbits, c)
-    K = 1 << (c - 1)
     dev = xy.device
 
     ent, counts = bucket_entries(scal, inf, nbits, c)
     sums = reduce_runs(xy.contiguous(), ent, counts, F, b3, affine=True)
-
-    # subset sums: S[w, k] = sum of B[w, b] over b in 1..K with bit k of b
-    bvals = torch.arange(1, K + 1, device=dev)
-    sel = [((bvals >> k) & 1).nonzero().squeeze(-1) for k in range(c)]
-    ent2 = torch.cat(
-        [(w * K + s) * 2 for w in range(W) for s in sel]
-    ).to(torch.int32)
-    counts2 = torch.tensor(
-        [s.numel() for _ in range(W) for s in sel], device=dev
-    )
+    ent2, counts2 = subset_entries(W, c, dev)
     subs = reduce_runs(sums, ent2, counts2, F, b3, affine=False)
 
     # Horner over bit positions j = c*w + k on the host, in Jacobian

@@ -4,9 +4,9 @@ Ports ``ec/msm_tpu.py`` (the ``use_msm8=False`` MSM of
 ``snark/groth16_tpu.py`` and the trusted setup's scalar multiplication)
 with ``JacCurve.msm_pippenger`` (``ec/curve_jax.py:561``, with
 ``_segment_tile_reduce`` 453 and ``_segment_tile_reduce_mixed`` 510) onto
-the kernels of ``ec/jac_curve.py``: K4 ``jac_add`` and K5 ``jac_dbl_chain``
-(``csrc/fast_kernels.cu``) and K6 ``aff_add`` (``csrc/jac_kernels.cu``).  It is
-named for its group law; "tpu" named the reference's chip.
+the kernels of ``ec/jac_curve.py``: K4 ``jac_add``, K5 ``jac_dbl_chain``
+and K6 ``aff_add`` (``csrc/fast_kernels.cu``).  It is named for its group
+law; "tpu" named the reference's chip.
 
 The Pippenger MSM keeps the reference's algorithm and constants:
 

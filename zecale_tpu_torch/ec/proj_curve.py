@@ -35,7 +35,7 @@ from ..ff import params as P
 from . import curve_torch as ct
 
 #: the prime each kernel form is built for (fast_kernels.cu fixes it at
-#: compile time; the other kernels take it as an argument)
+#: compile time)
 FORM_PRIME = {"fq12": P.CURVES["bls12-377"].q, "fq24": P.CURVES["bw6-761"].q,
               "fq2": P.CURVES["bls12-377"].q}
 
@@ -51,20 +51,6 @@ def check_points(name: str, F, *ts, width: int = 3) -> None:
                 f"{name}: points must be contiguous int32 (..., {width}, "
                 f"{', '.join(map(str, F.shape))}) on one device, got "
                 f"{t.dtype} {tuple(t.shape)} on {t.device}")
-
-
-def launch(name: str, sym: str, F, out, *args) -> None:
-    """Launch the kernel ``sym`` of field.cuh's types (K6) in F's form on
-    the current stream: its ``args``, then the field constants.  Raise on
-    a CUDA error."""
-    from ..utils.build import cuda_kernels
-
-    p, one, pinv, _ = ct.kernel_consts(F, 0)
-    fn = cuda_kernels()[(sym, (ct.form_of(F),))]
-    rc = fn(*args, p.ctypes.data, one.ctypes.data, pinv,
-            torch.cuda.current_stream(out.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
 def fast_form(name: str, F) -> str:

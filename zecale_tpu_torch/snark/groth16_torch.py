@@ -13,10 +13,9 @@ Ports ``snark/groth16_tpu.py`` (``DevicePk8`` 201, ``pack_pk8`` 227,
     32-bit scalar limbs;
   * msm: A, B1, L, H in G1 and B2 in G2 through one of the three engines
     of the reference: ``"msm4"`` (``ec/msm.py``, bucket sums in the CUDA
-    kernel ``csrc/bucket_reduce.cu``), ``"msm8"`` (``ec/msm8.py``, every
-    group operation in ``csrc/fast_kernels.cu``) or ``"jac"`` (the
-    reference's ``use_msm8=False`` branch: ``ec/msm_jac.py``, every group
-    operation in ``csrc/fast_kernels.cu`` and ``csrc/jac_kernels.cu``).
+    kernel ``bucket_reduce``), ``"msm8"`` (``ec/msm8.py``) or ``"jac"``
+    (the reference's ``use_msm8=False`` branch: ``ec/msm_jac.py``); every
+    kernel is in ``csrc/fast_kernels.cu``.
     With no engine given, it is
     chosen as ``groth16_tpu.py:510-513`` chooses: ``ZECALE_USE_MSM8`` set
     selects msm8, else msm4.  The coordinates of BW6-761 G1 and G2 lie in

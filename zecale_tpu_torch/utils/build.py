@@ -1,7 +1,7 @@
 """Build of the port's hand-written kernels into plain-C shared libraries.
 
 ``nvcc`` compiles each kernel source of ``KERNELS`` for ``sm_90a``, once
-per variant (field form; input form or threads per point), into a ``.so``
+per variant (field form and threads per point), into a ``.so``
 with a plain C interface, loaded with ``ctypes``: no PyTorch headers, so
 the build takes seconds rather than the minutes of
 ``torch.utils.cpp_extension``.  The same headers also build with ``g++``
@@ -170,25 +170,49 @@ def dbl_tpi(kernel: str, form: str, n: int) -> int:
     return _row(DBL_TPI, kernel, form, n)[0]
 
 
+#: Threads per segment of K1 (bucket_reduce, keyed by the launch's
+#: entries: its adds) and per point of K6 (aff_add, keyed by the batch),
+#: fast_kernels.cu, by kernel and form: rows (largest count, TPI), looked
+#: up as ADD_TPI's, each TPI one that ADD_TPIS builds.  From the sweep of
+#: every built TPI in chip_smoke.py on the H100 (PERF.md section 6).  K1
+#: at the launches of an MSM at n = 2^16 and the first 4,096-65,536
+#: segments of its first one: up to 131,072 entries (subset sums, second
+#: levels of short segments, 4,096 full segments) the more lanes won in
+#: every form, from 524,288 (16,384 full segments and up) the fewer; at
+#: equal segment counts the pick flips with the segments' length, so the
+#: entries, not the segments, key the rows.  K6 at the jac engine's tiled
+#: round and the setup's 16,384-lane chunks, as K4's rows where the two
+#: TPIs were within the runs' noise.
+SUM_TPI = {
+    "bucket_reduce": {
+        "fq12": ((262144, 4), (None, 1)),
+        "fq24": ((262144, 8), (None, 4)),
+        "fq2": ((262144, 4), (None, 1)),
+    },
+    "aff_add": {
+        "fq12": ((16384, 4), (None, 1)),
+        "fq24": ((16384, 8), (None, 4)),
+        "fq2": ((4096, 4), (None, 1)),
+    },
+}
+
+
+def sum_tpi(kernel: str, form: str, n: int) -> int:
+    """Threads per segment of K1 ("bucket_reduce", a launch of n entries)
+    or per point of K6 ("aff_add", n points) in ``form``."""
+    return _row(SUM_TPI, kernel, form, n)[0]
+
+
 #: One entry per kernel source: its variants (key -> -D flags, one nvcc and
 #: one library each) and the C functions every variant exports, with their
 #: ctypes argtypes.  Every launcher returns the CUDA error code (int).
 KERNELS = {
-    "bucket_reduce.cu": {
-        "variants": {
-            (form, affine): flags + [f"-DZT_AFFINE={affine}"]
-            for form, flags in FORMS.items() for affine in (1, 0)
-        },
-        # pts, ent, seg, nseg, out, p, one, pinv, b3, stream
-        "symbols": {
-            "zt_bucket_reduce": [_VP, _VP, _VP, _CI, _VP, _VP, _VP,
-                                 ctypes.c_uint, _VP, _VP],
-        },
-    },
     "fast_kernels.cu": {
         "variants": {(form, t): FORMS[form] + [f"-DZT_TPI={t}"]
                      for form, ts in ADD_TPIS.items() for t in ts},
         "symbols": {
+            # pts, ent, seg, nseg, out, affine, b3, stream
+            "zt_bucket_reduce": [_VP, _VP, _VP, _CI, _VP, _CI, _VP, _VP],
             # p, q, out, n, b3, stream
             "zt_proj_add": [_VP, _VP, _VP, _CI, _VP, _VP],
             # p, q, out, n, stream
@@ -197,14 +221,8 @@ KERNELS = {
             "zt_proj_dbl_chain": [_VP, _VP, _CI, _CI, _VP, _VP],
             # p, out, n, k, stream
             "zt_jac_dbl_chain": [_VP, _VP, _CI, _CI, _VP],
-        },
-    },
-    "jac_kernels.cu": {
-        "variants": {(form,): flags for form, flags in FORMS.items()},
-        "symbols": {
-            # a, ainf, b, binf, out, n, prime, one, pinv, stream
-            "zt_aff_add": [_VP, _VP, _VP, _VP, _VP, _CI, _VP, _VP,
-                           ctypes.c_uint, _VP],
+            # a, ainf, b, binf, out, n, stream
+            "zt_aff_add": [_VP, _VP, _VP, _VP, _VP, _CI, _VP],
         },
     },
 }
@@ -244,9 +262,18 @@ def cuda_kernels() -> dict:
 
 
 def kernel_label(mangled: str):
-    """The kernel function of a mangled name; None for another symbol."""
+    """The kernel function of a mangled name, K1's with its input form (its
+    last template argument, the bool before the return type); None for
+    another symbol."""
     kernel = re.search(r"([a-z][a-z_]*_kernel)I", mangled)
-    return kernel.group(1) if kernel else None
+    if not kernel:
+        return None
+    if kernel.group(1) == "bucket_reduce_kernel":
+        affine = re.search(r"Lb([01])E+v", mangled)
+        if affine:
+            return kernel.group(1) + ("_affine" if affine.group(1) == "1"
+                                      else "_projective")
+    return kernel.group(1)
 
 
 def build_report() -> list:
@@ -279,14 +306,8 @@ def host_check_lib() -> ctypes.CDLL:
     lib.zt_cpu_fp_mul.argtypes = [ci, vp, vp, vp, ctypes.c_long, vp, vp,
                                   ctypes.c_uint]
     lib.zt_cpu_fp_mul.restype = ci
-    lib.zt_cpu_bucket_reduce.argtypes = [ci, ci, vp, vp, vp, ci, vp, vp, vp,
-                                         ctypes.c_uint, vp]
-    lib.zt_cpu_bucket_reduce.restype = ci
-    lib.zt_cpu_proj.argtypes = [ci, vp, vp, vp, ctypes.c_long, vp, vp,
-                                ctypes.c_uint, vp]
-    lib.zt_cpu_proj.restype = ci
-    lib.zt_cpu_jac.argtypes = [ci, ci, vp, vp, vp, vp, vp, ctypes.c_long, ci,
-                               vp, vp, ctypes.c_uint]
+    lib.zt_cpu_jac.argtypes = [ci, ci, vp, vp, vp, ctypes.c_long, ci, vp, vp,
+                               ctypes.c_uint]
     lib.zt_cpu_jac.restype = ci
     lib.zt_cpu_fast_field.argtypes = [ci, ci, ci, vp, vp, vp, ctypes.c_long]
     lib.zt_cpu_fast_field.restype = ci
@@ -296,6 +317,11 @@ def host_check_lib() -> ctypes.CDLL:
     lib.zt_cpu_fast_dbl.argtypes = [ci, ci, ci, vp, vp, ctypes.c_long, ci,
                                     vp]
     lib.zt_cpu_fast_dbl.restype = ci
+    lib.zt_cpu_fast_reduce.argtypes = [ci, ci, ci, vp, vp, vp, ci, vp, vp]
+    lib.zt_cpu_fast_reduce.restype = ci
+    lib.zt_cpu_fast_aff_add.argtypes = [ci, ci, vp, vp, vp, vp, vp,
+                                        ctypes.c_long]
+    lib.zt_cpu_fast_aff_add.restype = ci
     lib.zt_cpu_fast_consts.argtypes = [ci, vp, vp]
     lib.zt_cpu_fast_consts.restype = ctypes.c_uint
     return lib
