@@ -56,17 +56,30 @@ Phases, each printing one flushed line with its seconds:
      msm8 and jac proves and a second msm4 prove run under torch.profiler
      (CUDA activity), each with the device time of every kernel summed by
      name and its K1-K6 launches counted by batch size (K1: segments) and
-     variant, with their device ms;
+     variant, with their device ms; [3k] the served path: the aggregator
+     service built by api/server_main.py:build_service (batch 1, prover
+     torch, the [3d] keypair written to a file so that the load branch and
+     its vk-shape check run), each request and answer carried through the
+     protobuf wire format: the configuration, the registration of the
+     nested vk and its hash (equal), two nested transactions at fees 5 and
+     10 and one with a point off the curve (refused), two aggregations,
+     which must come in fee order with proofs valid under the wrapper vk
+     for inputs [vk_hash, 1, a] and launch K1, and a third (refused: the
+     pool is empty), with the seconds of each request;
   4. bench.py's MSM shape on the three engines: BLS12-377 G1 at n = 2^18
      with uniform scalars from random.Random(42) and 64 cycled bases,
      checked against the folded host MSM, Mpoints/s after one warm-up run;
      and a BLS12-377 G2 (Fq2) MSM at n = 2^16, equal across the engines;
+     [4b] the port's bench (zecale_tpu_torch/bench.py) in this process
+     at its default shape without its e2e run: its host-oracle check must
+     pass and its line must carry bench.py's keys;
   5. a JSON line of the kernels with their launches on the main path, then
      the card's name and power limit, then {"ok": true, "device": ...}.
 
-Each path of phase 3 runs with the launch counts set to 0 just before it
-and read just after.  Tolerance: exact.  Field and group values are
-integers, so a kernel's limbs must equal the plain version's bit for bit.
+Each path of phase 3 ([3k]: its two aggregations) runs with the launch
+counts set to 0 just before it and read just after.  Tolerance: exact.
+Field and group values are integers, so a kernel's limbs must equal the
+plain version's bit for bit.
 Any failed check raises and the script exits non-zero without the last
 line.  There is no CPU fallback: without a CUDA device it exits 1 at once.
 
@@ -988,25 +1001,10 @@ def keypair_fields(kp) -> tuple:
         tuple(getattr(kp.vk, k) for k in ("alpha", "beta", "delta", "abc")))
 
 
-class DeviceProver:
-    """Fixes the device proving key for AggregatorCircuit.prove."""
-
-    def __init__(self, prover, dpk):
-        self.prover = prover
-        self.dpk = dpk
-        self.last_timings = {}
-
-    def prove(self, r1cs, pk, assignment, rng=None):
-        timings = {}
-        proof = self.prover.prove(r1cs, pk, assignment, rng,
-                                  device_pk=self.dpk, timings=timings)
-        self.last_timings = timings
-        return proof
-
-
 def prove_phase() -> dict:
     import torch
 
+    from zecale_tpu_torch.aggregate_e2e import DeviceProver
     from zecale_tpu_torch.aggregator import dummy_app as da
     from zecale_tpu_torch.aggregator.circuit import AggregatorCircuit
     from zecale_tpu_torch.ec import host_curve as hc
@@ -1225,8 +1223,11 @@ def prove_phase() -> dict:
     log(f"[3i] tampered wrapper proof rejected ({time.time() - t0:.1f}s)")
 
     return {"counts": counts, "setup_s": setup_s, "profiles": profiles,
-            "hists": hists, "runs": {k: {"prove_s": v["prove_s"], "phases": v["phases"]}
-                     for k, v in runs.items()}}
+            "hists": hists,
+            "runs": {k: {"prove_s": v["prove_s"], "phases": v["phases"]}
+                     for k, v in runs.items()},
+            "nested_kp": nkp, "nested_proof": nested, "wrapper_kp": wkp,
+            "vk_hash": vk_hash}
 
 
 # ---------------------------------------------------------------------------
@@ -1284,6 +1285,216 @@ def bench_phase() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 3k: the served path
+# ---------------------------------------------------------------------------
+
+
+def wire_codecs() -> dict:
+    """method -> (request schema, client request -> wire, wire -> service
+    request, response schema, service response -> wire, wire -> client
+    response): the protobuf transport of api/grpc_server.py, which imports
+    grpc, and of the reference's client/aggregator_client.py."""
+    from zecale_tpu_torch.serialization import protowire as pw
+
+    same = lambda m: m  # noqa: E731
+    return {
+        "GetConfiguration": (pw.EMPTY, same, same,
+                             pw.AGGREGATOR_CONFIGURATION,
+                             pw.config_to_proto, pw.config_from_proto),
+        "GetNestedVerificationKeyHash": (
+            pw.VERIFICATION_KEY, pw.vk_to_proto, pw.vk_from_proto,
+            pw.VERIFICATION_KEY_HASH, same, same),
+        "RegisterApplication": (
+            pw.APPLICATION_DESCRIPTION,
+            lambda d: {"application_name": d["application_name"],
+                       "vk": pw.vk_to_proto(d["vk"])},
+            lambda m: {"application_name": m["application_name"],
+                       "vk": pw.vk_from_proto(m["vk"])},
+            pw.VERIFICATION_KEY_HASH, same, same),
+        "SubmitNestedTransaction": (
+            pw.NESTED_TRANSACTION, pw.nested_tx_to_proto,
+            pw.nested_tx_from_proto, pw.EMPTY, same, lambda m: {}),
+        "GenerateAggregatedTransaction": (
+            pw.AGGREGATED_TRANSACTION_REQUEST, same, same,
+            pw.AGGREGATED_TRANSACTION, pw.agg_tx_to_proto,
+            pw.agg_tx_from_proto),
+    }
+
+
+def served_phase(pp: dict) -> dict:
+    """[3k] The aggregator service built by server_main.build_service
+    (batch 1, prover torch, the [3d] keypair loaded from a file), driven
+    request by request with each request and answer carried through the
+    protobuf wire format."""
+    import torch
+
+    from zecale_tpu_torch.aggregator import dummy_app as da
+    from zecale_tpu_torch.api import server_main
+    from zecale_tpu_torch.api.service import ServiceError
+    from zecale_tpu_torch.serialization import json_codec as jc
+    from zecale_tpu_torch.serialization import protowire as pw
+    from zecale_tpu_torch.snark.groth16 import ExtendedProof, Groth16
+
+    codecs = wire_codecs()
+    nkp, wkp, vk_hash = pp["nested_kp"], pp["wrapper_kp"], pp["vk_hash"]
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "keypair.bin")
+        with open(path, "wb") as f:
+            pickle.dump(wkp, f)
+        svc, _ = server_main.build_service(
+            ["--batch-size", "1", "--prover", "torch", "--keypair", path])
+    log(f"[3k] service built by server_main (batch 1, prover torch, "
+        f"keypair loaded) ({time.time() - t0:.1f}s)")
+    # each aggregation's split: the prover's phases, whose "witness" holds
+    # the per-request repack of the proving key, timed here on its own
+    repack, phases = [], []
+    prover = svc.prover
+    pack_pk, prove = prover.pack_pk, prover.prove
+
+    def timed_pack(*args):
+        t = time.time()
+        out = pack_pk(*args)
+        torch.cuda.synchronize()
+        repack.append(round(time.time() - t, 3))
+        return out
+
+    def timed_prove(*args, **kw):
+        t = {}
+        out = prove(*args, timings=t, **kw)
+        phases.append({k: round(v, 3) for k, v in t.items()})
+        return out
+
+    prover.pack_pk, prover.prove = timed_pack, timed_prove
+
+    def call(method, handler, request):
+        req_s, to_wire, from_wire, resp_s, resp_to, resp_from = \
+            codecs[method]
+        t = time.time()
+        got = handler(from_wire(pw.decode(req_s, pw.encode(
+            req_s, to_wire(request)))))
+        out = resp_from(pw.decode(resp_s, pw.encode(resp_s, resp_to(got))))
+        return out, time.time() - t
+
+    seconds = {}
+    cfg, seconds["get_configuration"] = call(
+        "GetConfiguration", lambda _: svc.get_configuration(), {})
+    check(cfg["nested_pairing_parameters"]["name"] == "bls12-377"
+          and cfg["wrapper_pairing_parameters"]["name"] == "bw6-761",
+          "configuration names the wrong curves")
+    vk_json = jc.groth16_vk_to_json("bls12-377", nkp.vk)
+    h1, seconds["register_application"] = call(
+        "RegisterApplication",
+        lambda m: {"hash": svc.register_application(m["application_name"],
+                                                    m["vk"])},
+        {"application_name": "app", "vk": vk_json})
+    h2, seconds["get_nested_verification_key_hash"] = call(
+        "GetNestedVerificationKeyHash",
+        lambda m: {"hash": svc.get_nested_verification_key_hash(m)},
+        vk_json)
+    check(h1["hash"] == h2["hash"] == jc.fr_to_json("bw6-761", vk_hash),
+          "registration and vk-hash requests give different hashes")
+
+    def submit(tx):
+        svc.submit_nested_transaction(tx)
+        return {}
+
+    # the [3b] proof (a = 7, made on the card) at fee 5, a host proof of
+    # a = 8 at fee 10: the pool answers the higher fee first
+    proofs = {7: pp["nested_proof"],
+              8: da.dummy_app_prove("bls12-377", nkp, 8,
+                                    random.Random(3)).proof}
+    txs = {a: {"app_name": "app",
+               "extended_proof": jc.extended_proof_to_json(
+                   "bls12-377", ExtendedProof(proofs[a], [a])),
+               "parameters": f"{a:02x}", "fee_in_wei": fee}
+           for a, fee in ((7, 5), (8, 10))}
+    for a in (7, 8):
+        _, seconds[f"submit a={a}"] = call("SubmitNestedTransaction",
+                                           submit, txs[a])
+    bad = json.loads(json.dumps(txs[7]))
+    bad["extended_proof"]["proof"]["a"][0] = "0x" + "11" * 48
+    try:
+        call("SubmitNestedTransaction", submit, bad)
+        raise RuntimeError("check failed: off-curve proof point accepted")
+    except ServiceError as e:
+        log(f"[3k] off-curve proof point refused: {e}")
+
+    host_w = Groth16("bw6-761")
+    reset_counts()
+    answers = []
+    for i in range(2):
+        agg, s_ = call("GenerateAggregatedTransaction",
+                       lambda m: svc.generate_aggregated_transaction(
+                           m["application_name"]),
+                       {"application_name": "app"})
+        seconds[f"generate_aggregated_transaction {i + 1}"] = s_
+        answers.append(agg)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts["bucket_reduce"]["launches"] > 0,
+          "bucket_reduce never launched by the served aggregation")
+    for agg, a in zip(answers, (8, 7)):
+        ep = jc.extended_proof_from_json("bw6-761", agg["ext_proof"])
+        check(agg["app_name"] == "app"
+              and agg["nested_parameters"] == [f"{a:02x}"],
+              f"aggregated transaction of a = {a} out of fee order")
+        check(list(ep.inputs) == [vk_hash, 1, a],
+              f"served layout {ep.inputs} != [vk_hash, 1, {a}]")
+        t = time.time()
+        check(host_w.verify(ep.inputs, ep.proof, wkp.vk),
+              f"served wrapper proof of a = {a} does not verify")
+        seconds[f"host verify a={a}"] = time.time() - t
+    try:
+        call("GenerateAggregatedTransaction",
+             lambda m: svc.generate_aggregated_transaction(
+                 m["application_name"]), {"application_name": "app"})
+        raise RuntimeError("check failed: empty pool gave a batch")
+    except ServiceError as e:
+        log(f"[3k] empty pool refused: {e}")
+    check(len(repack) == len(phases) == 2,
+          "the service did not repack and prove once an aggregation")
+    log(f"[3k] served path: two aggregated proofs in fee order (a = 8, "
+        f"then 7), valid with inputs [vk_hash, 1, a]; seconds per request "
+        f"{json.dumps({k: round(v, 3) for k, v in seconds.items()})}; "
+        f"key repack s {repack}; prover phases {json.dumps(phases)}; "
+        f"launches of the two aggregations {json.dumps(counts)}")
+    return {"counts": counts, "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the port's bench main
+# ---------------------------------------------------------------------------
+
+#: the keys of bench.py's JSON line (bench.py:189-203)
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "engine", "points",
+              "aggregated_proofs_per_s", "e2e_batch", "e2e_warm_prove_s",
+              "e2e_cold_prove_s")
+
+
+def bench_entry_phase() -> dict:
+    """[4b] zecale_tpu_torch.bench in this process at its default shape,
+    without its e2e subprocess."""
+    from zecale_tpu_torch import bench
+
+    t0 = time.time()
+    saved = os.environ.get("BENCH_E2E")
+    os.environ["BENCH_E2E"] = "0"
+    try:
+        ok, out = bench.run()
+    finally:
+        if saved is None:
+            del os.environ["BENCH_E2E"]
+        else:
+            os.environ["BENCH_E2E"] = saved
+    check(ok, "bench: MSM != host oracle")
+    check(tuple(out) == BENCH_KEYS, f"bench keys {list(out)}")
+    log(f"[4b] bench main: host-oracle check passed; its line "
+        f"{json.dumps(out)} ({time.time() - t0:.1f}s)")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1323,9 +1534,11 @@ def main() -> int:
     log(f"[2] K4 / K5 / K6 checks done ({time.time() - t0:.1f}s)")
 
     main_path = prove_phase()
+    main_path["counts"]["served"] = served_phase(main_path)["counts"]
     t0 = time.time()
     bench_phase()
     log(f"[4] bench shapes done ({time.time() - t0:.1f}s)")
+    bench_entry_phase()
 
     def launches(name):
         return sum(c[name]["launches"] for c in main_path["counts"].values())

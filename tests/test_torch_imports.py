@@ -43,15 +43,24 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
 
 
 def test_main_path_imports_with_jax_unimportable():
+    # grpc too: the card's machine may not have it, and only the serve
+    # step of api/server_main.py imports it
     code = (
         "import sys\n"
-        "for m in ('jax', 'jaxlib', 'zecale_tpu'):\n"
+        "for m in ('jax', 'jaxlib', 'zecale_tpu', 'grpc'):\n"
         "    sys.modules[m] = None\n"
         "import chip_smoke\n"
         "import zecale_tpu_torch.snark.groth16_torch\n"
         "import zecale_tpu_torch.snark.setup_native\n"
         "import zecale_tpu_torch.aggregator.circuit\n"
         "import zecale_tpu_torch.aggregator.dummy_app\n"
+        "import zecale_tpu_torch.api.server_main\n"
+        "import zecale_tpu_torch.api.service\n"
+        "import zecale_tpu_torch.aggregate_e2e\n"
+        "import zecale_tpu_torch.bench\n"
+        "import zecale_tpu_torch.graft_entry\n"
+        "import zecale_tpu_torch.utils.profiling\n"
+        "import zecale_tpu_torch.contracts.dispatcher\n"
         "loaded = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'zecale_tpu') and sys.modules[m] is not None]\n"
         "assert not loaded, loaded\n"
