@@ -36,9 +36,10 @@ Phases, each printing one flushed line with its seconds:
      at infinity, P+P with equal and with different Z, P+(-P), distinct
      points; K6 with each infinity flag, P = Q, P = -Q), K4 and K6 in
      every built TPI, then K4 and K6 timed in every TPI at the first tiled
-     round of the jac engine's largest MSM (48 windows x 1,024 tiles of a
-     BW6-761 G1 MSM at n = 2^16), K6 also at the setup's 16,384-lane
-     chunk, and K5 at its Horner fold (k = 8);
+     round of the jac engine's largest MSM (48 windows x 2,048 tiles of
+     the PGHR13 wrapper's BW6-761 G1 MSMs, whose queries are padded to
+     n = 2^17), K6 also at the Groth16 wrapper's round (n = 2^16) and the
+     setup's 16,384-lane chunk, and K5 at its Horner fold (k = 8);
   3. a small Groth16 proof on the card equal to the host prover's; [3b] the
      nested BLS12-377 dummy-app proof made on the card (G2 over Fq2), equal
      to the host prover's from the same rng state and valid, its keypair
@@ -65,7 +66,16 @@ Phases, each printing one flushed line with its seconds:
      10 and one with a point off the curve (refused), two aggregations,
      which must come in fee order with proofs valid under the wrapper vk
      for inputs [vk_hash, 1, a] and launch K1, and a third (refused: the
-     pool is empty), with the seconds of each request;
+     pool is empty), with the seconds of each request; [3l] the PGHR13
+     wrapper (AggregatorCircuit(1, 1, wrapper_snark="PGHR13") over the [3b]
+     proof): Pghr13Torch.generate_setup on the card equal to
+     Pghr13Native's keypair from one rng state, a proof on the card equal
+     to Pghr13Native's from one rng state, valid for [vk_hash, 1, 7] on the
+     native pairing with a tampered input rejected, a second, warm prove
+     under torch.profiler (device ms by kernel, K4-K6 launches by batch
+     size, the card's busy share), and one aggregation served by
+     server_main.build_service with --snark PGHR13 --prover torch, valid
+     under the PGHR13 wrapper vk;
   4. bench.py's MSM shape on the three engines: BLS12-377 G1 at n = 2^18
      with uniform scalars from random.Random(42) and 64 cycled bases,
      checked against the folded host MSM, Mpoints/s after one warm-up run;
@@ -76,16 +86,18 @@ Phases, each printing one flushed line with its seconds:
   5. a JSON line of the kernels with their launches on the main path, then
      the card's name and power limit, then {"ok": true, "device": ...}.
 
-Each path of phase 3 ([3k]: its two aggregations) runs with the launch
-counts set to 0 just before it and read just after.  Tolerance: exact.
+Each path of phase 3 ([3k]: its two aggregations; [3l]: its setup, its
+first prove and its served aggregation) runs with the launch counts set to
+0 just before it and read just after.  Tolerance: exact.
 Field and group values are integers, so a kernel's limbs must equal the
 plain version's bit for bit.
 Any failed check raises and the script exits non-zero without the last
 line.  There is no CPU fallback: without a CUDA device it exits 1 at once.
 
-The native wrapper keypair is cached in the temporary directory, never in
-the repository, under a name keyed by a hash of the rng state it was made
-from and the circuit's size; the circuit holds witness closures, cannot be
+The native wrapper keypairs (Groth16 and PGHR13) are cached in the
+temporary directory, never in the repository, under a name keyed by a hash
+of the rng state they were made from and the circuit's size; the circuit
+holds witness closures, cannot be
 pickled, and is rebuilt (a few seconds).
 
 Usage: python3 chip_smoke.py
@@ -348,10 +360,11 @@ class Launches:
         return hist
 
 
-def log_profile(run: str, profiles: dict, hists: dict) -> None:
+def log_profile(run: str, profiles: dict, hists: dict,
+                tag: str = "[3j]") -> None:
     prof = dict(profiles[run])
     prof.pop("launch_us")
-    log(f"[3j] {run}, device time by kernel: {json.dumps(prof)}; K1-K6 "
+    log(f"{tag} {run}, device time by kernel: {json.dumps(prof)}; K1-K6 "
         f"launches [count, device ms] by batch size (K1: segments): "
         f"{json.dumps(hists[run])}")
 
@@ -608,14 +621,16 @@ def dbl_check(name: str, run, plain, pts, ks, tpis, w: int) -> int:
     return err
 
 
-#: batch sizes of the K6 sweep below the table's shape: the setup's
-#: fixed-base chunk
-K6_SWEEP_N = (16384,)
+#: batch sizes of the K6 sweep below the table's shape: the first tiled
+#: round of the Groth16 wrapper's BW6-761 G1 MSMs (n = 2^16) and the
+#: setup's fixed-base chunk
+K6_SWEEP_N = (49152, 16384)
 
 
 #: batch sizes of the K2 / K4 sweep: a Horner add, a step of msm8's scan
 #: 2, two sizes between, the setup's chunk, and at Fq 24 the jac engine's
-#: first tiled round and msm8's first combining round
+#: first tiled round of the Groth16 wrapper's G1 MSMs and of the PGHR13
+#: wrapper's G2 MSM (n = 2^16) and msm8's first combining round
 SWEEP_N = (1, 105, 1024, 4096, 16384, 49152, 1182721)
 
 
@@ -803,10 +818,12 @@ def jac_phase(stats: dict, tpis: dict) -> None:
             n // 64)
 
     # each form at the largest launch this script's jac paths give it: the
-    # wrapper's BW6-761 G1 MSMs (n = 2^16), bench.py's BLS12-377 G1 shape
-    # (n = 2^18) and the BLS12-377 G2 MSM of phase 4 (n = 2^16)
+    # PGHR13 wrapper's BW6-761 G1 MSMs ([3l], queries padded to n = 2^17;
+    # the Groth16 wrapper's n = 2^16 round is in SWEEP_N and K6_SWEEP_N),
+    # bench.py's BLS12-377 G1 shape (n = 2^18) and the BLS12-377 G2 MSM of
+    # phase 4 (n = 2^16)
     forms = {
-        "fq24": ("bw6-761", False, tiled_lanes("bw6-761", 1 << 16)),
+        "fq24": ("bw6-761", False, tiled_lanes("bw6-761", 1 << 17)),
         "fq12": ("bls12-377", False, tiled_lanes("bls12-377", 1 << 18)),
         "fq2": ("bls12-377", True, tiled_lanes("bls12-377", 1 << 16)),
     }
@@ -944,7 +961,8 @@ def jac_phase(stats: dict, tpis: dict) -> None:
                           "bound_by": bby, "max_abs_err": err4,
                           "sweep": list(swp.values())}
         del ref
-        # K6 in every TPI at the tiled round's lanes and the setup's chunk
+        # K6 in every TPI at the tiled round's lanes and the sizes of
+        # K6_SWEEP_N below it
         xa, xb, fb = xy[ja[:big]], xy[jb[:big]], fin[:big]
         t_ref = time.time()
         ref = ct.aff_add(F, xa, fb, xb, fb)
@@ -1322,6 +1340,19 @@ def wire_codecs() -> dict:
     }
 
 
+def wire_call(codecs: dict, method: str, handler, request) -> tuple:
+    """(answer, seconds): the request through the wire format to the
+    handler, and its answer back."""
+    from zecale_tpu_torch.serialization import protowire as pw
+
+    req_s, to_wire, from_wire, resp_s, resp_to, resp_from = codecs[method]
+    t = time.time()
+    got = handler(from_wire(pw.decode(req_s, pw.encode(
+        req_s, to_wire(request)))))
+    out = resp_from(pw.decode(resp_s, pw.encode(resp_s, resp_to(got))))
+    return out, time.time() - t
+
+
 def served_phase(pp: dict) -> dict:
     """[3k] The aggregator service built by server_main.build_service
     (batch 1, prover torch, the [3d] keypair loaded from a file), driven
@@ -1333,7 +1364,6 @@ def served_phase(pp: dict) -> dict:
     from zecale_tpu_torch.api import server_main
     from zecale_tpu_torch.api.service import ServiceError
     from zecale_tpu_torch.serialization import json_codec as jc
-    from zecale_tpu_torch.serialization import protowire as pw
     from zecale_tpu_torch.snark.groth16 import ExtendedProof, Groth16
 
     codecs = wire_codecs()
@@ -1369,13 +1399,7 @@ def served_phase(pp: dict) -> dict:
     prover.pack_pk, prover.prove = timed_pack, timed_prove
 
     def call(method, handler, request):
-        req_s, to_wire, from_wire, resp_s, resp_to, resp_from = \
-            codecs[method]
-        t = time.time()
-        got = handler(from_wire(pw.decode(req_s, pw.encode(
-            req_s, to_wire(request)))))
-        out = resp_from(pw.decode(resp_s, pw.encode(resp_s, resp_to(got))))
-        return out, time.time() - t
+        return wire_call(codecs, method, handler, request)
 
     seconds = {}
     cfg, seconds["get_configuration"] = call(
@@ -1464,6 +1488,227 @@ def served_phase(pp: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3l: the PGHR13 wrapper on the card
+# ---------------------------------------------------------------------------
+
+
+def pghr13_fields(kp) -> tuple:
+    """Every point of a PGHR13 keypair, for comparing two keypairs."""
+    return (tuple(getattr(kp.pk, k) for k in (
+        "a_query", "b_query", "c_query", "k_query", "h_query")),
+        tuple(getattr(kp.vk, k) for k in (
+            "a", "b", "c", "g", "gb1", "gb2", "z", "ic")))
+
+
+def pghr13_phase(pp: dict) -> dict:
+    """[3l] The batch-1 BW6-761 wrapper with wrapper_snark="PGHR13" over the
+    [3b] nested proof: the device setup (equal to Pghr13Native's from one
+    rng state, the native keypair cached in the temporary directory), the
+    device proof (equal to Pghr13Native's from one rng state, valid for
+    [vk_hash, 1, 7], a tampered input rejected), a second, warm prove under
+    torch.profiler, and one aggregation served by the service that
+    server_main builds with --snark PGHR13 --prover torch."""
+    import torch
+
+    from zecale_tpu_torch.aggregate_e2e import DeviceProver
+    from zecale_tpu_torch.aggregator.circuit import AggregatorCircuit
+    from zecale_tpu_torch.api import server_main
+    from zecale_tpu_torch.serialization import json_codec as jc
+    from zecale_tpu_torch.snark.groth16 import ExtendedProof
+    from zecale_tpu_torch.snark.pghr13 import Pghr13, Pghr13Native
+    from zecale_tpu_torch.snark.pghr13_torch import Pghr13Torch
+
+    nkp = pp["nested_kp"]
+    eps = [ExtendedProof(proof=pp["nested_proof"], inputs=[7])]
+    counts, profiles, hists = {}, {}, {}
+    host = Pghr13("bw6-761")
+    native = Pghr13Native("bw6-761")
+    prover = Pghr13Torch("bw6-761")
+
+    t0 = time.time()
+    circ = AggregatorCircuit(1, 1, wrapper_snark="PGHR13")
+    r1cs = circ.r1cs
+    vk_hash = circ.compute_nested_vk_hash(nkp.vk)
+    check(vk_hash == pp["vk_hash"], "the PGHR13 wrapper hashes the nested "
+          "vk differently")
+    log(f"[3l] PGHR13 wrapper circuit built: {r1cs.num_constraints} "
+        f"constraints, {r1cs.num_variables} variables, domain "
+        f"{r1cs.qap_degree} ({time.time() - t0:.1f}s)")
+
+    # the native keypair, cached under a hash of the rng state and the
+    # circuit's size, then the device setup from the same state
+    rng = random.Random(13)
+    state = rng.getstate()
+    key = hashlib.sha256(repr(state).encode()).hexdigest()[:16]
+    cache = os.path.join(tempfile.gettempdir(), "zecale_tpu_torch_cache")
+    os.makedirs(cache, exist_ok=True)
+    kp_path = os.path.join(
+        cache, f"pghr13_keypair_b1_{r1cs.num_constraints}_{key}.pkl")
+    t0 = time.time()
+    if os.path.exists(kp_path):
+        with open(kp_path, "rb") as f:
+            kp = pickle.load(f)
+        how = f"native keypair loaded from {kp_path}"
+    else:
+        r = random.Random()
+        r.setstate(state)
+        kp = native.generate_setup(r1cs, r)
+        with open(kp_path + ".tmp", "wb") as f:
+            pickle.dump(kp, f)
+        os.replace(kp_path + ".tmp", kp_path)
+        how = "Pghr13Native setup"
+    log(f"[3l] {how} ({time.time() - t0:.1f}s)")
+    timings = {}
+    reset_counts()
+    with Launches() as rec:
+        kp_dev, profiles["pghr13 device setup"] = profiled(
+            lambda: prover.generate_setup(r1cs, rng, timings=timings))
+    counts["pghr13 setup"] = read_counts()
+    hists["pghr13 device setup"] = rec.histogram(
+        profiles["pghr13 device setup"]["launch_us"])
+    check(pghr13_fields(kp_dev) == pghr13_fields(kp),
+          "PGHR13 device setup != Pghr13Native setup from one rng state")
+    for name in ("jac_add", "aff_add"):
+        check(counts["pghr13 setup"][name]["launches"] > 0,
+              f"{name} never launched during the PGHR13 device setup")
+    log(f"[3l] PGHR13 device setup "
+        f"({profiles['pghr13 device setup']['wall_s']:.1f}s, under the "
+        f"profiler) equals Pghr13Native's keypair (device products: G1 "
+        f"{6 * len(kp.pk.a_query) + len(kp.pk.h_query)}, G2 "
+        f"{len(kp.pk.b_query)}; the vk's on the host); launches "
+        f"{json.dumps(counts['pghr13 setup'])}; phases "
+        f"{json.dumps({k: round(v, 3) for k, v in timings.items()})}")
+    log_profile("pghr13 device setup", profiles, hists, "[3l]")
+
+    # the proof: Pghr13Native on the host, then on the card from one state
+    state = rng.getstate()
+    r = random.Random()
+    r.setstate(state)
+    t0 = time.time()
+    want = circ.prove(nkp.vk, eps, kp.pk, r, prover=native, check=True)
+    native_s = time.time() - t0
+    t0 = time.time()
+    dpk = prover.pack_pk(kp.pk)
+    torch.cuda.synchronize()
+    log(f"[3l] Pghr13Native prove {native_s:.1f}s; pack_pk: G1 queries "
+        f"{dpk.n_g1}, G2 query {dpk.n_g2} ({time.time() - t0:.1f}s)")
+    dev = DeviceProver(prover, dpk)
+    runs = {}
+    for run in ("pghr13 prove", "pghr13 prove warm"):
+        r.setstate(state)
+        reset_counts()
+        go = lambda: circ.prove(  # noqa: E731
+            nkp.vk, eps, kp.pk, r, prover=dev, check=True)
+        if run == "pghr13 prove":
+            t0 = time.time()
+            wep = go()
+            torch.cuda.synchronize()
+            prove_s = time.time() - t0
+            counts[run] = read_counts()
+        else:
+            with Launches() as rec:
+                wep, profiles[run] = profiled(go)
+            hists[run] = rec.histogram(profiles[run]["launch_us"])
+            prove_s = profiles[run]["wall_s"]
+        phases = {k: round(v, 3) for k, v in dev.last_timings.items()}
+        runs[run] = {"wep": wep, "prove_s": prove_s, "phases": phases}
+        check(wep.proof == want.proof and wep.inputs == want.inputs,
+              f"{run}: device PGHR13 proof != Pghr13Native proof")
+        log(f"[3l] {run} on the card ({prove_s:.1f}s"
+            f"{'' if run == 'pghr13 prove' else ', under the profiler'}), "
+            f"equal to Pghr13Native's; prover phases {json.dumps(phases)}")
+    for name in ("jac_add", "jac_dbl_chain", "aff_add"):
+        check(counts["pghr13 prove"][name]["launches"] > 0,
+              f"{name} never launched during the PGHR13 prove")
+    log(f"[3l] launches of the PGHR13 prove "
+        f"{json.dumps(counts['pghr13 prove'])}")
+    prof = profiles["pghr13 prove warm"]
+    busy = (prof["device_ms"] or 0.0) / (1e3 * prof["wall_s"])
+    log_profile("pghr13 prove warm", profiles, hists, "[3l]")
+    log(f"[3l] warm PGHR13 prove: the card busy {100 * busy:.1f}% of "
+        f"{prof['wall_s']:.2f}s")
+
+    t0 = time.time()
+    check(list(wep.inputs) == [vk_hash, 1, 7],
+          f"PGHR13 primary layout {wep.inputs[:3]} != [vk_hash, 1, 7]")
+    check(host.verify(wep.inputs, wep.proof, kp.vk),
+          "device PGHR13 wrapper proof does not verify")
+    verify_s = time.time() - t0
+    check(not host.verify([vk_hash, 1, 8], wep.proof, kp.vk),
+          "PGHR13 wrapper proof accepted for a tampered input")
+    log(f"[3l] PGHR13 wrapper proof verifies for [vk_hash, 1, 7] "
+        f"({verify_s:.1f}s, native pairing); a tampered input is rejected")
+
+    # one aggregation served with --snark PGHR13 --prover torch
+    codecs = wire_codecs()
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "keypair.bin")
+        with open(path, "wb") as f:
+            pickle.dump(kp, f)
+        svc, _ = server_main.build_service(
+            ["--snark", "PGHR13", "--prover", "torch", "--batch-size", "1",
+             "--keypair", path])
+    check(type(svc.prover).__name__ == "Pghr13Torch",
+          f"server_main built a {type(svc.prover).__name__}")
+    log(f"[3l] service built by server_main (--snark PGHR13, prover torch, "
+        f"keypair loaded) ({time.time() - t0:.1f}s)")
+    vk_json = jc.groth16_vk_to_json("bls12-377", nkp.vk)
+    seconds = {}
+    _, seconds["register_application"] = wire_call(
+        codecs, "RegisterApplication",
+        lambda m: {"hash": svc.register_application(m["application_name"],
+                                                    m["vk"])},
+        {"application_name": "app", "vk": vk_json})
+
+    def submit(tx):
+        svc.submit_nested_transaction(tx)
+        return {}
+
+    tx = {"app_name": "app",
+          "extended_proof": jc.extended_proof_to_json("bls12-377", eps[0]),
+          "parameters": "07", "fee_in_wei": 1}
+    _, seconds["submit"] = wire_call(codecs, "SubmitNestedTransaction",
+                                     submit, tx)
+    phases = []
+    prove = svc.prover.prove
+
+    def timed_prove(*args, **kw):
+        t = {}
+        out = prove(*args, timings=t, **kw)
+        phases.append({k: round(v, 3) for k, v in t.items()})
+        return out
+
+    svc.prover.prove = timed_prove
+    reset_counts()
+    agg, seconds["generate_aggregated_transaction"] = wire_call(
+        codecs, "GenerateAggregatedTransaction",
+        lambda m: svc.generate_aggregated_transaction(
+            m["application_name"]),
+        {"application_name": "app"})
+    torch.cuda.synchronize()
+    counts["pghr13 served"] = read_counts()
+    for name in ("jac_add", "jac_dbl_chain", "aff_add"):
+        check(counts["pghr13 served"][name]["launches"] > 0,
+              f"{name} never launched by the served PGHR13 aggregation")
+    ep = jc.extended_proof_from_json("bw6-761", agg["ext_proof"], "PGHR13")
+    check(agg["nested_parameters"] == ["07"] and list(ep.inputs) == [
+        vk_hash, 1, 7], f"served PGHR13 layout {ep.inputs}")
+    t0 = time.time()
+    check(host.verify(ep.inputs, ep.proof, kp.vk),
+          "served PGHR13 wrapper proof does not verify")
+    seconds["host verify"] = time.time() - t0
+    log(f"[3l] served PGHR13 aggregation valid with inputs "
+        f"[vk_hash, 1, 7]; seconds per request "
+        f"{json.dumps({k: round(v, 3) for k, v in seconds.items()})}; "
+        f"prover phases {json.dumps(phases)} (witness holds the key "
+        f"repack); launches {json.dumps(counts['pghr13 served'])}")
+    return {"counts": counts,
+            "runs": {k: {"prove_s": v["prove_s"], "phases": v["phases"]}
+                     for k, v in runs.items()}}
+
+
+# ---------------------------------------------------------------------------
 # phase 4b: the port's bench main
 # ---------------------------------------------------------------------------
 
@@ -1535,6 +1780,7 @@ def main() -> int:
 
     main_path = prove_phase()
     main_path["counts"]["served"] = served_phase(main_path)["counts"]
+    main_path["counts"].update(pghr13_phase(main_path)["counts"])
     t0 = time.time()
     bench_phase()
     log(f"[4] bench shapes done ({time.time() - t0:.1f}s)")

@@ -1,6 +1,7 @@
 """The port's entry points (zecale_tpu_torch: api/server_main.py,
 aggregate_e2e.py, bench.py, graft_entry.py, utils/profiling.py) on the
-CPU: server_main's refusals and keypair checks, the phase profiler's
+CPU: server_main's refusals, its keypair checks (Groth16 and PGHR13) and
+its provers, the phase profiler's
 records against the JAX package's, graft_entry's function against the
 host oracles on the reference's example data, and the bench main at a
 small shape.  Tolerance: exact."""
@@ -24,6 +25,8 @@ from zecale_tpu_torch.ec import host_curve as hc
 from zecale_tpu_torch.ec.proj_curve import ProjCurve
 from zecale_tpu_torch.ff.fp_torch import field
 from zecale_tpu_torch.poly.domain_host import domain
+from zecale_tpu_torch.snark.pghr13 import (
+    Pghr13KeyPair, Pghr13VerificationKey)
 from zecale_tpu_torch.utils import profiling
 
 # One intra-op thread: the suite runs in several worker processes at
@@ -65,7 +68,7 @@ def test_entry_point_raises_without_a_gpu(name):
 
 
 @pytest.mark.parametrize("argv, says", [
-    (["--snark", "PGHR13"], "Pghr13Torch"),
+    (["--snark", "PGHR13", "--curve", "mnt6-298"], "a = 0"),
     (["--curve", "mnt6-298"], "a = 0"),
 ])
 def test_server_main_refuses_what_the_torch_prover_cannot_serve(
@@ -109,6 +112,28 @@ def test_load_or_generate_keypair_matches_reference(tmp_path, n_abc):
     assert (want == 4) == (n_abc == 4)
 
 
+def _pghr13_keypair(n_ic):
+    points = dict.fromkeys(("a", "b", "c", "g", "gb1", "gb2", "z"))
+    return Pghr13KeyPair(pk="pk", vk=Pghr13VerificationKey(
+        ic=list(range(n_ic)), **points))
+
+
+@pytest.mark.parametrize("n_ic", [3, 4, 5])
+def test_load_or_generate_keypair_checks_the_pghr13_ic(tmp_path, n_ic):
+    path = str(tmp_path / "kp.bin")
+    with open(path, "wb") as f:
+        pickle.dump(_pghr13_keypair(n_ic), f)
+    if n_ic == 4:
+        kp = server_main.load_or_generate_keypair(_Circuit(), path)
+        assert kp.vk.ic == [0, 1, 2, 3]
+    else:
+        with pytest.raises(ValueError, match=f"vk shape {n_ic} != "):
+            server_main.load_or_generate_keypair(_Circuit(), path)
+    # the JAX package reads vk.abc, which a PGHR13 vk does not have
+    with pytest.raises(AttributeError, match="abc"):
+        server_main_ref.load_or_generate_keypair(_Circuit(), path)
+
+
 def test_load_or_generate_keypair_generates_and_writes(tmp_path):
     path = str(tmp_path / "kp.bin")
     circ = _Circuit()
@@ -138,6 +163,20 @@ def test_build_service_loads_keypair_for_the_torch_prover(tmp_path):
     with pytest.raises(ValueError, match="vk shape"):
         server_main.build_service(
             ["--batch-size", "2", "--device", "cpu", "--keypair", path])
+
+
+def test_build_service_serves_pghr13_with_the_torch_prover(tmp_path):
+    path = str(tmp_path / "kp.bin")
+    with open(path, "wb") as f:
+        pickle.dump(_pghr13_keypair(4), f)
+    svc, _ = server_main.build_service(
+        ["--batch-size", "1", "--snark", "PGHR13", "--device", "cpu",
+         "--keypair", path])
+    assert type(svc.prover).__name__ == "Pghr13Torch"
+    assert svc.prover.device.type == "cpu"
+    assert svc.circuit.wrapper_snark == "PGHR13"
+    assert svc.circuit.wsnark.name == "PGHR13"
+    assert svc.keypair.vk.ic == [0, 1, 2, 3]
 
 
 # ---------------------------------------------------------------------------

@@ -61,6 +61,11 @@ def test_main_path_imports_with_jax_unimportable():
         "import zecale_tpu_torch.graft_entry\n"
         "import zecale_tpu_torch.utils.profiling\n"
         "import zecale_tpu_torch.contracts.dispatcher\n"
+        "import zecale_tpu_torch.snark.pghr13\n"
+        "import zecale_tpu_torch.snark.pghr13_torch\n"
+        "import zecale_tpu_torch.native.pairing\n"
+        "import zecale_tpu_torch.gadgets.pghr13_verifier\n"
+        "import zecale_tpu_torch.gadgets.mnt_pairing_gadget\n"
         "loaded = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'zecale_tpu') and sys.modules[m] is not None]\n"
         "assert not loaded, loaded\n"

@@ -168,11 +168,13 @@ def test_msm_device_against_host():
     prover = Groth16Torch(curve, device="cpu")
     F = ct.coord_field(curve, False)
     xy, inf = ct.pack_affine(F, pts + [None, None], "cpu")
-    acc = prover.msm_device(False, {"xy": xy, "inf": inf}, scalars)
+    acc = prover.msm_device(False, {"xy": xy, "inf": inf},
+                            prover._scalars(scalars, len(xy)))
     assert msm_jac.curve(curve, False).to_affine_host(acc) == [
         crv.msm(scalars, pts[:5])]
     with pytest.raises(ValueError):
-        prover.msm_device(False, {"xy": xy, "inf": inf}, [1] * 9)
+        prover.msm_device(False, {"xy": xy, "inf": inf},
+                          prover._scalars([1] * 9, 9))
 
 
 def test_wrappers_refuse_bad_input():

@@ -185,6 +185,45 @@ def test_json_codec_matches_reference():
     assert _service("port")[0].get_configuration() == cfg_ref
 
 
+@pytest.mark.parametrize("curve", ["bls12-377", "bw6-761"])
+def test_pghr13_json_codec_matches_reference(curve):
+    _, kp = da.dummy_app_setup(curve, random.Random(4), snark="PGHR13")
+    ep = da.dummy_app_prove(curve, kp, 5, random.Random(5), snark="PGHR13")
+    vk_json = jc.pghr13_vk_to_json(curve, kp.vk)
+    ep_json = jc.extended_proof_to_json(curve, ep, "PGHR13")
+    assert vk_json == jc_ref.pghr13_vk_to_json(curve, kp.vk)
+    assert ep_json == jc_ref.extended_proof_to_json(curve, ep, "PGHR13")
+    assert jc.snark_codec("PGHR13")[2](curve, kp.vk) == vk_json
+    # decode: the port's objects hold the reference's values
+    vk_ref = jc_ref.pghr13_vk_from_json(curve, vk_json)
+    assert jc.pghr13_vk_from_json(curve, vk_json).__dict__ == \
+        vk_ref.__dict__ == kp.vk.__dict__
+    got = jc.extended_proof_from_json(curve, ep_json, "PGHR13")
+    want = jc_ref.extended_proof_from_json(curve, ep_json, "PGHR13")
+    assert got.proof.__dict__ == want.proof.__dict__ == ep.proof.__dict__
+    assert got.inputs == want.inputs == [5]
+
+
+def test_pghr13_ext_proof_keeps_its_points_through_the_wire():
+    curve = "bw6-761"
+    _, kp = da.dummy_app_setup(curve, random.Random(4), snark="PGHR13")
+    ep = da.dummy_app_prove(curve, kp, 5, random.Random(5), snark="PGHR13")
+    agg = {"app_name": "app", "nested_parameters": ["05"],
+           "ext_proof": jc.extended_proof_to_json(curve, ep, "PGHR13")}
+    wire = pw.encode(pw.AGGREGATED_TRANSACTION, pw.agg_tx_to_proto(agg))
+    back = pw.agg_tx_from_proto(pw.decode(pw.AGGREGATED_TRANSACTION, wire))
+    assert back == agg
+    got = jc.extended_proof_from_json(curve, back["ext_proof"], "PGHR13")
+    assert got.proof.__dict__ == ep.proof.__dict__
+    # the JAX package sends it as a Groth16 proof: a_p, b_p, c_p, h and k
+    # are lost on the wire
+    wire = pw_ref.encode(pw_ref.AGGREGATED_TRANSACTION,
+                         pw_ref.agg_tx_to_proto(agg))
+    lost = pw_ref.agg_tx_from_proto(
+        pw_ref.decode(pw_ref.AGGREGATED_TRANSACTION, wire))
+    assert sorted(lost["ext_proof"]["proof"]) == ["a", "b", "c"]
+
+
 @pytest.mark.parametrize("message", ["vk", "config", "nested_tx", "agg_tx"])
 def test_protowire_bytes_match_reference(message):
     objs = _objects("ref")

@@ -1,4 +1,4 @@
-# Ported from zecale_tpu/api/server_main.py: the same flags and keypair cache, with Groth16Torch as the device prover.
+# Ported from zecale_tpu/api/server_main.py: the same flags and keypair cache, with Groth16Torch and Pghr13Torch as the device provers.
 """aggregator-server entry point.
 
 Reference analog: aggregator_server/aggregator_server.cpp main (:418-521):
@@ -13,12 +13,12 @@ runs where grpc is not installed.
 
 ``--device`` is ``cuda`` unless the CPU is asked for; without a GPU the
 entry point raises.  ``--prover torch`` (the default) proves and runs the
-trusted setup on that device through ``Groth16Torch``; ``--prover host``
-is the pure-Python oracle.  The JAX package's ``native`` prover is not offered:
-its ``Groth16Native`` computes the QAP evaluations through the JAX prover
-(``snark/groth16_native.py:211``).  The port has no PGHR13 prover yet, so
-``--snark PGHR13`` with ``--prover torch`` is refused, as is
-``--curve mnt6-298`` (a != 0, which the device group law does not serve).
+trusted setup on that device through ``Groth16Torch``, or ``Pghr13Torch``
+with ``--snark PGHR13``; ``--prover host`` is the pure-Python oracle.  The
+JAX package's ``native`` prover is not offered: its ``Groth16Native``
+computes the QAP evaluations through the JAX prover
+(``snark/groth16_native.py:211``).  ``--curve mnt6-298`` is refused with
+``--prover torch`` (a != 0, which the device group law does not serve).
 The witness is computed in the serving process: ``ZECALE_PARALLEL_WITNESS``
 forks, and is left off here as in the reference.
 
@@ -38,6 +38,7 @@ import pickle
 import sys
 import time
 
+from ..snark.pghr13 import Pghr13VerificationKey
 from ..utils.device import resolve
 
 
@@ -46,11 +47,16 @@ def load_or_generate_keypair(circuit, path: str, prover=None):
         logging.info("loading keypair from %s", path)
         with open(path, "rb") as f:
             kp = pickle.load(f)
-        # vk shape check, like the reference (aggregator_server.cpp:490,502)
+        # vk shape check, like the reference (aggregator_server.cpp:490,502);
+        # a PGHR13 vk holds its input commitments in ``ic``, a Groth16 one
+        # in ``abc`` (the JAX package reads ``abc`` of both and raises
+        # AttributeError on its own PGHR13 keypair)
         expect = circuit.num_primary_inputs + 1
-        if len(kp.vk.abc) != expect:
+        got = len(kp.vk.ic if isinstance(kp.vk, Pghr13VerificationKey)
+                  else kp.vk.abc)
+        if got != expect:
             raise ValueError(
-                f"keypair vk shape {len(kp.vk.abc)} != expected {expect}"
+                f"keypair vk shape {got} != expected {expect}"
             )
         return kp
     logging.info("generating trusted setup (this can take a while)...")
@@ -118,14 +124,13 @@ def build_service(argv=None):
 
     prover = None
     if args.prover == "torch":
-        if args.snark != "GROTH16":
-            ap.error("--snark PGHR13 needs Pghr13Torch, the device PGHR13 "
-                     "prover, which the port does not have yet; use "
-                     "--prover host")
-        from ..snark.groth16_torch import Groth16Torch
+        if args.snark == "GROTH16":
+            from ..snark.groth16_torch import Groth16Torch as Prover
+        else:
+            from ..snark.pghr13_torch import Pghr13Torch as Prover
 
         try:
-            prover = Groth16Torch(args.curve, device=device)
+            prover = Prover(args.curve, device=device)
         except ValueError as e:  # the a = 0 law refuses the curve
             ap.error(f"--prover torch cannot serve --curve {args.curve}: "
                      f"{e}")

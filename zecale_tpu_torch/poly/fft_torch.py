@@ -1,8 +1,9 @@
 """Radix-2 FFT and the QAP division over a scalar field, in plain PyTorch.
 
 Ports ``poly/fft_tpu.py`` (``fft`` 85, ``coset_fft`` 138, ``coset_ifft``
-147, ``h_pipeline_jit`` 164).  The reference is plain XLA there, not
-Pallas, so here it is plain torch ops on the device: an iterative
+147, ``h_pipeline_jit`` 164, ``qap_polys_pipeline_jit`` 208).  The
+reference is plain XLA there, not Pallas, so here it is plain torch ops
+on the device: an iterative
 butterfly network over Montgomery limb tensors (``ff/fp_torch.py``), one
 vectorised butterfly of n/2 products per stage, twiddles and coset scales
 computed on the host once per (size, field, device).
@@ -99,15 +100,24 @@ def coset_ifft(evals: torch.Tensor, r: int) -> torch.Tensor:
     return F.mul(fft(evals, r, inverse=True), scale)
 
 
-def h_pipeline(az: torch.Tensor, bz: torch.Tensor, cz: torch.Tensor,
-               r: int) -> torch.Tensor:
+def qap_polys_pipeline(az: torch.Tensor, bz: torch.Tensor, cz: torch.Tensor,
+                       r: int) -> tuple:
     """QAP division: (Az, Bz, Cz) evaluations on the domain ->
-    coefficients of H = (A*B - C) / Z, all (n, L) Montgomery."""
+    (H, A, B), the coefficients of H = (A*B - C) / Z and of A and B (the
+    first inverse FFTs, which the PGHR13 prover's zero-knowledge shift
+    needs), all (n, L) Montgomery."""
     F = field(r)
     n = az.shape[0]
     d = _radix2(n, r)
     zinv = F.pack_mont([d.vanishing_on_coset_inverse()], az.device)[0]
-    a_e, b_e, c_e = (coset_fft(fft(v, r, inverse=True), r)
-                     for v in (az, bz, cz))
+    a_c, b_c, c_c = (fft(v, r, inverse=True) for v in (az, bz, cz))
+    a_e, b_e, c_e = (coset_fft(v, r) for v in (a_c, b_c, c_c))
     h_e = F.mul(F.sub(F.mul(a_e, b_e), c_e), zinv)
-    return coset_ifft(h_e, r)
+    return coset_ifft(h_e, r), a_c, b_c
+
+
+def h_pipeline(az: torch.Tensor, bz: torch.Tensor, cz: torch.Tensor,
+               r: int) -> torch.Tensor:
+    """QAP division: (Az, Bz, Cz) evaluations on the domain ->
+    coefficients of H = (A*B - C) / Z, all (n, L) Montgomery."""
+    return qap_polys_pipeline(az, bz, cz, r)[0]

@@ -1,4 +1,4 @@
-# Copied from zecale_tpu/serialization/protowire.py (JAX-free); unchanged but for this line.
+# Copied from zecale_tpu/serialization/protowire.py (JAX-free); unchanged but for this line and ext_proof_to_proto's Groth16 test.
 """Hand-rolled proto3 wire-format codec for the Aggregator API messages.
 
 grpcio-tools (protobuf codegen) is not in the image, but the proto3 wire
@@ -347,7 +347,9 @@ def vk_from_proto(msg: dict) -> dict:
 
 def ext_proof_to_proto(ep_json: dict) -> dict:
     p = ep_json.get("proof", {})
-    if {"a", "b", "c"} <= set(p):  # Groth16
+    # exactly Groth16's keys: a PGHR13 proof has a, b and c too, and five
+    # more points the Groth16 message would drop
+    if set(p) == {"a", "b", "c"}:  # Groth16
         return {
             "groth16": {
                 "a": _g1_to_msg(p["a"]),

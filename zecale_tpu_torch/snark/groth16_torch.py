@@ -2,7 +2,8 @@
 
 Ports ``snark/groth16_tpu.py`` (``DevicePk8`` 201, ``pack_pk8`` 227,
 ``_prove8`` 422, the ``use_msm8=False`` branch of ``prove`` 582-647 and
-``generate_setup`` 283 with ``TpuSnarkBase`` 122-197).
+``generate_setup`` 283; ``TpuSnarkBase`` 116-197 is ``TorchSnarkBase``,
+which ``snark/pghr13_torch.py`` shares).
 ``Groth16Torch.prove`` has the reference's signature, so
 ``AggregatorCircuit.prove(prover=...)`` calls it unchanged.  The steps:
 
@@ -153,6 +154,22 @@ def from_reference_pk8(arrays: dict, curve_name: str, num_pub: int,
     )
 
 
+def abc_evaluations(r1cs: R1CS, assignment: Sequence[int]) -> tuple:
+    """Az, Bz, Cz on the QAP domain from the native C witness engine
+    (built once a circuit); no Python fallback -- a missing engine
+    raises."""
+    nat = getattr(r1cs, "_native", None)
+    if nat is None:
+        nat = NativeR1CS(r1cs)
+        r1cs._native = nat
+    if not nat.available:
+        raise RuntimeError(
+            "native witness engine did not build (gcc of "
+            "zecale_tpu_torch/native/csrc/witness_engine.c)"
+        )
+    return nat.abc_evaluations(assignment)
+
+
 ENGINES = ("msm4", "msm8", "jac")
 
 
@@ -162,27 +179,21 @@ def default_engine() -> str:
     return "msm8" if os.environ.get("ZECALE_USE_MSM8") else "msm4"
 
 
-class Groth16Torch:
-    """Device Groth16 prover over an a = 0 curve: BW6-761 (the wrapper) or
-    BLS12-377 (the nested application proofs, G2 over Fq2).  ``engine``
-    is "msm4", "msm8" or "jac"; None reads ``ZECALE_USE_MSM8``."""
+class TorchSnarkBase:
+    """What the device provers share (``TpuSnarkBase``,
+    ``groth16_tpu.py:116-197``): the device, the curve, its scalar field,
+    the host curves, and the device's fixed-base products (the trusted
+    setups) and Jacobian MSMs against a padded query.  The curve must have
+    a = 0: the device group law refuses the others."""
 
-    name = "GROTH16"
-
-    def __init__(self, curve_name: str, device=None, engine=None):
+    def __init__(self, curve_name: str, device=None):
         self.curve_name = curve_name
         self.device = resolve(device)
-        self.engine = engine or default_engine()
-        if self.engine not in ENGINES:
-            raise ValueError(f"engine {self.engine!r} not in {ENGINES}")
         self.r = P.CURVES[curve_name].r
         self.Fr = field(self.r)
         ct.b3_of(curve_name, True)  # refuses curves the law does not serve
         self.g1_host = hc.g1_curve(curve_name)
         self.g2_host = hc.g2_curve(curve_name)
-
-    def pack_pk(self, pk: Groth16ProvingKey, num_pub: int) -> DevicePk:
-        return pack_pk(self.curve_name, pk, num_pub, self.device)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -229,19 +240,37 @@ class Groth16Torch:
         return self._batch_scalar_mul(
             True, scalars, base or hc.generators(self.curve_name)[1])
 
-    def msm_device(self, g2: bool, query: dict, scalars: Sequence[int]):
-        """MSM of host ints against a padded device query (DevicePk
-        layout) -> one Jacobian point on the device (``msm_device`` 189)."""
+    def msm_device(self, g2: bool, query: dict, scalars):
+        """MSM against a padded device query (DevicePk layout) -> one
+        Jacobian point on the device (``msm_device`` 189).  ``scalars``
+        are (n, L) standard-form limbs on the device, padded to the
+        query's n (``_scalars``; packed once for several MSMs)."""
         n = query["xy"].shape[0]
-        if len(scalars) > n:
-            raise ValueError(f"msm_device: {len(scalars)} scalars for a "
-                             f"query of {n}")
+        if len(scalars) != n:
+            raise ValueError(f"msm_device: {len(scalars)} packed scalars "
+                             f"for a query of {n}")
         crv = msm_jac.curve(self.curve_name, g2)
         digits = msm_jac.scalar_digit_planes(
-            self._scalars(scalars, n),
-            self.r.bit_length(), msm_jac.MSM_WINDOW_C)
+            scalars, self.r.bit_length(), msm_jac.MSM_WINDOW_C)
         return msm_jac.msm_pippenger(crv, digits, query["xy"], query["inf"],
                                      msm_jac.MSM_WINDOW_C)
+
+
+class Groth16Torch(TorchSnarkBase):
+    """Device Groth16 prover over an a = 0 curve: BW6-761 (the wrapper) or
+    BLS12-377 (the nested application proofs, G2 over Fq2).  ``engine``
+    is "msm4", "msm8" or "jac"; None reads ``ZECALE_USE_MSM8``."""
+
+    name = "GROTH16"
+
+    def __init__(self, curve_name: str, device=None, engine=None):
+        self.engine = engine or default_engine()
+        if self.engine not in ENGINES:
+            raise ValueError(f"engine {self.engine!r} not in {ENGINES}")
+        super().__init__(curve_name, device)
+
+    def pack_pk(self, pk: Groth16ProvingKey, num_pub: int) -> DevicePk:
+        return pack_pk(self.curve_name, pk, num_pub, self.device)
 
     def generate_setup(self, r1cs: R1CS,
                        rng: Optional[random.Random] = None,
@@ -284,16 +313,7 @@ class Groth16Torch:
             return now
 
         dpk = device_pk or self.pack_pk(pk, num_pub)
-        nat = getattr(r1cs, "_native", None)
-        if nat is None:
-            nat = NativeR1CS(r1cs)
-            r1cs._native = nat
-        if not nat.available:
-            raise RuntimeError(
-                "native witness engine did not build (gcc of "
-                "zecale_tpu_torch/native/csrc/witness_engine.c)"
-            )
-        az, bz, cz = nat.abc_evaluations(assignment)
+        az, bz, cz = abc_evaluations(r1cs, assignment)
         t0 = mark("witness")
 
         evals = [Fr.to_mont(Fr.pack(v, dev)) for v in (az, bz, cz)]
