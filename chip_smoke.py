@@ -75,7 +75,20 @@ Phases, each printing one flushed line with its seconds:
      under torch.profiler (device ms by kernel, K4-K6 launches by batch
      size, the card's busy share), and one aggregation served by
      server_main.build_service with --snark PGHR13 --prover torch, valid
-     under the PGHR13 wrapper vk;
+     under the PGHR13 wrapper vk; [3m] the rollup's nested application,
+     the Zeth joinsplit (zeth/joinsplit.py: 350,776 constraints, QAP
+     domain 2^19): its device setup from Random(17) under torch.profiler
+     (scalars, device and affine seconds, K4 and K6 launches and device
+     ms at Fq 12 and Fq2), its proving key packed once, joinsplit 0
+     proved with the msm4, msm8 and jac engines from one rng state
+     (equal proofs, each valid, a tampered input rejected, each engine's
+     peak device memory) and again warm with msm4 under the profiler;
+     K1 against its plain version in every built TPI at the first
+     launches of the A and H MSMs (Fq 12) and the B2 MSM (Fq2) at
+     n = 2^19; the joinsplit proof wrapped at batch 1 with the [3d]
+     keypair and the [3e] device key (the joinsplit vk has the wrapper's
+     one nested input; layout [vk_hash, 1, js_hash]; a corrupt joinsplit
+     input gives bit 0 in a valid wrapper);
   4. bench.py's MSM shape on the three engines: BLS12-377 G1 at n = 2^18
      with uniform scalars from random.Random(42) and 64 cycled bases,
      checked against the folded host MSM, Mpoints/s after one warm-up run;
@@ -87,8 +100,9 @@ Phases, each printing one flushed line with its seconds:
      the card's name and power limit, then {"ok": true, "device": ...}.
 
 Each path of phase 3 ([3k]: its two aggregations; [3l]: its setup, its
-first prove and its served aggregation) runs with the launch counts set to
-0 just before it and read just after.  Tolerance: exact.
+first prove and its served aggregation; [3m]: its setup, its three
+engines' proves and its wrap) runs with the launch counts set to 0 just
+before it and read just after.  Tolerance: exact.
 Field and group values are integers, so a kernel's limbs must equal the
 plain version's bit for bit.
 Any failed check raises and the script exits non-zero without the last
@@ -283,17 +297,19 @@ def profiled(fn) -> tuple:
         torch.cuda.synchronize()
     wall = time.time() - t0
     ours, others, starts = {}, {}, {k: [] for k in SIZED}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+    # the raw trace: prof.events() would first build a Python object per
+    # host and device event, which takes a minute on a joinsplit prove
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
             continue
-        us = e.time_range.elapsed_us()
-        name = next((k for k, v in KERNEL_OF.items() if v in e.name), None)
+        us, label = e.duration_ns() / 1e3, e.name()
+        name = next((k for k, v in KERNEL_OF.items() if v in label), None)
         if name:
             ours[name] = ours.get(name, 0.0) + us / 1e3
             if name in starts:
-                starts[name].append((e.time_range.start, us))
+                starts[name].append((e.start_ns(), us))
         else:
-            others[e.name[:60]] = others.get(e.name[:60], 0.0) + us / 1e3
+            others[label[:60]] = others.get(label[:60], 0.0) + us / 1e3
     total = sum(ours.values()) + sum(others.values())
     top = dict(sorted(others.items(), key=lambda kv: -kv[1])[:5])
     return out, {"device_ms": total or None, "wall_s": wall,
@@ -374,42 +390,62 @@ def log_profile(run: str, profiles: dict, hists: dict,
 K1_SWEEP_SEGS = (4096, 16384, 32768, 49152, 65536)
 
 
-def k1_levels(stage: str, F, b3, pts, ent, counts, affine: bool,
-              tpis) -> list:
-    """The launches msm.reduce_runs makes for these runs (one level a
-    launch), each in every built TPI equal to the plain version and timed,
-    with its bound: a product count of one add per entry, and each input
-    and output read or written once.  "ms" is the table's pick.  The
-    first level is also timed on its first m segments for each m of
-    K1_SWEEP_SEGS below its count."""
+def k1_level(stage: str, F, b3, pts, ent, seg, affine: bool,
+             tpis) -> tuple:
+    """(level, partials, plain partials) of one launch of K1 over these
+    segments, in every TPI of ``tpis`` equal to the plain version and
+    timed, with its bound: a product count of one add per entry, and each
+    input and output read or written once.  The level's "ms" is the
+    table's pick."""
     import torch
 
     from zecale_tpu_torch.ec import msm
     from zecale_tpu_torch.ec.curve_torch import form_of
     from zecale_tpu_torch.utils import build
 
+    got = msm.bucket_reduce(pts, ent, seg, F, b3, affine)
+    torch.cuda.synchronize()
+    t_ref = time.time()
+    ref = msm.bucket_reduce_ref(pts, ent, seg, F, b3, affine)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t_ref) * 1e3
+    err = max_err(got, ref)
+    pick = build.sum_tpi("bucket_reduce", form_of(F), ent.numel())
+    level = {"stage": stage, "affine": affine, "segments": seg.numel() - 1,
+             "entries": ent.numel(),
+             "longest": int((seg[1:] - seg[:-1]).max()), "tpi": pick}
+    for t in tpis:
+        run = lambda t=t: msm.bucket_reduce_tpi(  # noqa: E731
+            pts, ent, seg, F, b3, affine, t)
+        err = max(err, max_err(run(), ref))
+        level[f"tpi{t}_ms"] = cuda_ms(run, 3)
+    check(err == 0, f"K1 {stage}: differs from plain")
+    ops = ent.numel() * add_muls(F, mixed=affine) * mul_ops(F)
+    nbytes = 4 * (pts.numel() + ent.numel() + seg.numel() + got.numel())
+    level["bound_ms"], level["bound_by"] = bound(ops, nbytes)
+    level.update(ms=level[f"tpi{pick}_ms"], plain_ms=plain_ms,
+                 max_abs_err=err)
+    return level, got, ref
+
+
+def k1_levels(stage: str, F, b3, pts, ent, counts, affine: bool,
+              tpis) -> list:
+    """The launches msm.reduce_runs makes for these runs (one level a
+    launch), each checked and timed by ``k1_level``.  The first level is
+    also timed on its first m segments for each m of K1_SWEEP_SEGS below
+    its count."""
+    import torch
+
+    from zecale_tpu_torch.ec import msm
+
     dev = pts.device
-    form = form_of(F)
     seg, nch = msm.segments(counts, ent.numel())
     levels = []
     while True:
-        got = msm.bucket_reduce(pts, ent, seg, F, b3, affine)
-        torch.cuda.synchronize()
-        t_ref = time.time()
-        ref = msm.bucket_reduce_ref(pts, ent, seg, F, b3, affine)
-        torch.cuda.synchronize()
-        plain_ms = (time.time() - t_ref) * 1e3
-        err = max_err(got, ref)
+        level, got, ref = k1_level(f"{stage} level {len(levels)}", F, b3,
+                                   pts, ent, seg, affine, tpis)
+        level["stage"], err = stage, 0
         nseg = seg.numel() - 1
-        pick = build.sum_tpi("bucket_reduce", form, ent.numel())
-        level = {"stage": stage, "affine": affine, "segments": nseg,
-                 "entries": ent.numel(),
-                 "longest": int((seg[1:] - seg[:-1]).max()), "tpi": pick}
-        for t in tpis:
-            run = lambda t=t: msm.bucket_reduce_tpi(  # noqa: E731
-                pts, ent, seg, F, b3, affine, t)
-            err = max(err, max_err(run(), ref))
-            level[f"tpi{t}_ms"] = cuda_ms(run, 3)
         if not levels:  # the first level's first m segments, every TPI
             level["sweep"] = []
             for m in (m for m in K1_SWEEP_SEGS if m < nseg):
@@ -421,11 +457,7 @@ def k1_levels(stage: str, F, b3, pts, ent, counts, affine: bool,
                     row[f"tpi{t}_ms"] = cuda_ms(run, 3)
                 level["sweep"].append(row)
         check(err == 0, f"K1 {stage} level {len(levels)}: differs from plain")
-        ops = ent.numel() * add_muls(F, mixed=affine) * mul_ops(F)
-        nbytes = 4 * (pts.numel() + ent.numel() + seg.numel() + got.numel())
-        level["bound_ms"], level["bound_by"] = bound(ops, nbytes)
-        level.update(ms=level[f"tpi{pick}_ms"], plain_ms=plain_ms,
-                     max_abs_err=err)
+        level["max_abs_err"] = max(level["max_abs_err"], err)
         levels.append(level)
         if int(nch.max()) <= 1:
             return levels
@@ -1245,7 +1277,7 @@ def prove_phase() -> dict:
             "runs": {k: {"prove_s": v["prove_s"], "phases": v["phases"]}
                      for k, v in runs.items()},
             "nested_kp": nkp, "nested_proof": nested, "wrapper_kp": wkp,
-            "vk_hash": vk_hash}
+            "vk_hash": vk_hash, "circuit": circ, "wrapper_dpk": dpk}
 
 
 # ---------------------------------------------------------------------------
@@ -1709,6 +1741,256 @@ def pghr13_phase(pp: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3m: the rollup's nested application, the Zeth joinsplit
+# ---------------------------------------------------------------------------
+
+
+def peak_gb(fn) -> tuple:
+    """(fn(), {"peak_gb": the device's peak allocation during fn, "base_gb":
+    the allocation before it})."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {"peak_gb": round(torch.cuda.max_memory_allocated() / 1e9, 3),
+                 "base_gb": round(base / 1e9, 3)}
+
+
+def by_form_ms(hist: dict, name: str) -> dict:
+    """{form: [launches, device ms]} of one kernel from a Launches
+    histogram."""
+    out = {}
+    for key, cells in hist.items():
+        kernel, form, _ = key.split()
+        if kernel != name:
+            continue
+        cell = out.setdefault(form, [0, 0.0])
+        for count, ms in cells.values():
+            cell[0] += count
+            cell[1] = None if ms is None or cell[1] is None else cell[1] + ms
+    return out
+
+
+#: the profile of [3m]'s warm msm4 joinsplit prove
+WARM = "joinsplit msm4 warm prove"
+
+
+def joinsplit_phase(pp: dict) -> dict:
+    """[3m] The rollup's nested application (zeth/joinsplit.py, 350,776
+    constraints, QAP domain 2^19) on the card: its device setup under
+    torch.profiler, its proving key packed once, joinsplit 0 proved with
+    the msm4, msm8 and jac engines from one rng state (equal proofs, each
+    verified, a tampered input rejected, each engine's peak device memory)
+    and again warm with msm4 under the profiler; K1 held against its plain
+    version at the first launches of the H and A MSMs (Fq 12) and the B2
+    MSM (Fq2) at n = 2^19, in every built TPI; then the proof wrapped at
+    batch 1 with the [3d] keypair and the [3e] device key (layout
+    [vk_hash, 1, js_hash]; a corrupt joinsplit input gives bit 0 in a
+    valid wrapper)."""
+    import torch
+
+    from zecale_tpu_torch.aggregate_e2e import DeviceProver
+    from zecale_tpu_torch.ec import curve_torch as ct
+    from zecale_tpu_torch.ec import msm
+    from zecale_tpu_torch.poly import fft_torch
+    from zecale_tpu_torch.snark import groth16_torch as gt
+    from zecale_tpu_torch.snark.groth16 import ExtendedProof, Groth16
+    from zecale_tpu_torch.utils import build
+    from zecale_tpu_torch.zeth.dev_vectors import make_test_joinsplit
+    from zecale_tpu_torch.zeth.joinsplit import JoinsplitCircuit
+
+    counts, profiles, hists = {}, {}, {}
+    host_n, host_w = Groth16("bls12-377"), Groth16("bw6-761")
+    provers = {eng: gt.Groth16Torch("bls12-377", engine=eng)
+               for eng in gt.ENGINES}
+
+    t0 = time.time()
+    js_circ = JoinsplitCircuit()
+    r1cs = js_circ.r1cs
+    check(r1cs.num_constraints == 350_776,
+          f"joinsplit has {r1cs.num_constraints} constraints, not 350,776")
+    check(r1cs.qap_degree == 1 << 19,
+          f"joinsplit domain {r1cs.qap_degree}, not 2^19")
+    log(f"[3m] joinsplit circuit built: {r1cs.num_constraints} constraints, "
+        f"{r1cs.num_variables} variables, domain {r1cs.qap_degree} "
+        f"({time.time() - t0:.1f}s)")
+
+    # the device setup (the reference's rollup_e2e.py step 2)
+    rng = random.Random(17)
+    timings = {}
+    reset_counts()
+    with Launches() as rec:
+        jkp, profiles["joinsplit device setup"] = profiled(
+            lambda: provers["msm4"].generate_setup(r1cs, rng,
+                                                   timings=timings))
+    counts["joinsplit setup"] = read_counts()
+    hist = rec.histogram(profiles["joinsplit device setup"]["launch_us"])
+    hists["joinsplit device setup"] = hist
+    for name in ("jac_add", "aff_add"):
+        by_form = counts["joinsplit setup"][name]["by_form"]
+        check(by_form.get("fq12", 0) > 0 and by_form.get("fq2", 0) > 0,
+              f"{name} not launched in both forms by the joinsplit setup")
+    nv, npub = r1cs.num_variables, r1cs.num_primary + 1
+    n_g1 = 3 + 2 * nv + nv + r1cs.qap_degree - 1
+    n_g2 = 2 + nv
+    check(len(jkp.pk.h_query) == r1cs.qap_degree - 1
+          and len(jkp.pk.b_g2_query) == nv and len(jkp.vk.abc) == npub,
+          "joinsplit keypair has the wrong query lengths")
+    log(f"[3m] joinsplit device setup "
+        f"({profiles['joinsplit device setup']['wall_s']:.1f}s, under the "
+        f"profiler): phases "
+        f"{json.dumps({k: round(v, 3) for k, v in timings.items()})}; "
+        f"products G1 {n_g1}, G2 {n_g2}; [launches, device ms] by form: "
+        f"K4 {json.dumps(by_form_ms(hist, 'jac_add'))}, "
+        f"K6 {json.dumps(by_form_ms(hist, 'aff_add'))}")
+    log_profile("joinsplit device setup", profiles, hists, "[3m]")
+
+    t0 = time.time()
+    dpk = provers["msm4"].pack_pk(jkp.pk, npub)
+    torch.cuda.synchronize()
+    log(f"[3m] pack_pk: G1 queries {dpk.n_g1}, G2 query {dpk.n_g2} "
+        f"({time.time() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB on the card)")
+
+    # joinsplit 0 on the three engines from one rng state, then msm4 warm
+    js = make_test_joinsplit(random.Random(100))
+    state = rng.getstate()
+    runs = {}
+    for run, eng in (("msm4", "msm4"), ("msm8", "msm8"), ("jac", "jac"),
+                     ("msm4 warm", "msm4")):
+        dev_prover = DeviceProver(provers[eng], dpk)
+        r = random.Random()
+        r.setstate(state)
+        reset_counts()
+        go = lambda: js_circ.prove(  # noqa: E731
+            **js, pk=jkp.pk, rng=r, prover=dev_prover,
+            check=(run == "msm4"))
+        t0 = time.time()
+        if run == "msm4 warm":
+            with Launches() as rec:
+                (ep, mem), profiles[WARM] = profiled(lambda: peak_gb(go))
+            hists[WARM] = rec.histogram(profiles[WARM]["launch_us"])
+            prove_s = profiles[WARM]["wall_s"]
+        else:
+            ep, mem = peak_gb(go)
+            prove_s = time.time() - t0
+        counts[f"joinsplit {run}"] = read_counts()
+        phases = {k: round(v, 3) for k, v in dev_prover.last_timings.items()}
+        runs[run] = {"ep": ep, "prove_s": prove_s, "phases": phases, **mem}
+        t0 = time.time()
+        check(host_n.verify(ep.inputs, ep.proof, jkp.vk),
+              f"joinsplit proof ({run}) does not verify")
+        log(f"[3m] joinsplit proof, engine {run} ({prove_s:.1f}s"
+            f"{', under the profiler' if run == 'msm4 warm' else ''}; "
+            f"device memory {json.dumps(mem)}), verifies "
+            f"({time.time() - t0:.2f}s); prover phases {json.dumps(phases)};"
+            f" launches {json.dumps(counts[f'joinsplit {run}'])}")
+    del counts["joinsplit msm4 warm"]  # a repeat, not another path
+    ep = runs["msm4"]["ep"]
+    for run in ("msm8", "jac", "msm4 warm"):
+        check(runs[run]["ep"].proof == ep.proof
+              and runs[run]["ep"].inputs == ep.inputs,
+              f"joinsplit proof ({run}) != msm4 joinsplit proof")
+    check(counts["joinsplit msm4"]["bucket_reduce"]["by_form"].get("fq2", 0)
+          > 0, "bucket_reduce (Fq2) never launched by the joinsplit prove")
+    for name in ("proj_add", "proj_dbl_chain"):
+        check(counts["joinsplit msm8"][name]["launches"] > 0,
+              f"{name} never launched by the msm8 joinsplit prove")
+    for name in ("jac_add", "jac_dbl_chain", "aff_add"):
+        check(counts["joinsplit jac"][name]["launches"] > 0,
+              f"{name} never launched by the jac joinsplit prove")
+    bad_input = (ep.inputs[0] + 1) % host_n.params.r
+    check(not host_n.verify([bad_input], ep.proof, jkp.vk),
+          "joinsplit proof accepted for a tampered input")
+    prof = profiles[WARM]
+    busy = (prof["device_ms"] or 0.0) / (1e3 * prof["wall_s"])
+    log("[3m] msm8 and jac joinsplit proofs and a warm msm4 one equal the "
+        "msm4 proof bit for bit; a tampered input is rejected")
+    log_profile(WARM, profiles, hists, "[3m]")
+    log(f"[3m] warm msm4 joinsplit prove: the card busy {100 * busy:.1f}% "
+        f"of {prof['wall_s']:.2f}s")
+
+    # K1 at the first launches of this path's MSMs at n = 2^19: the
+    # witness scalars of A (G1) and B2 (Fq2), and the uniform H scalars,
+    # made as prove makes them
+    w = js_circ.generate_witness(**js)
+    prover = provers["msm4"]
+    Fr, rmod = prover.Fr, prover.r
+    asg = [a % rmod for a in w]
+    az, bz, cz = gt.abc_evaluations(r1cs, w)
+    h = fft_torch.h_pipeline(
+        *[Fr.to_mont(Fr.pack(v, prover.device)) for v in (az, bz, cz)],
+        rmod)
+    h_scal = torch.nn.functional.pad(
+        Fr.from_mont(h[: r1cs.qap_degree - 1]),
+        (0, 0, 0, dpk.n_g1 - r1cs.qap_degree + 1))
+    k1 = []
+    for label, g2, scal, query in (
+            ("A", False, prover._scalars(asg, dpk.n_g1), dpk.a_query),
+            ("B2", True, prover._scalars(asg, dpk.n_g2), dpk.b_g2_query),
+            ("H", False, h_scal, dpk.h_query)):
+        F = ct.coord_field("bls12-377", g2)
+        n = query["xy"].shape[0]
+        c = msm.default_window(n)
+        ent, cnt = msm.bucket_entries(scal, query["inf"], rmod.bit_length(),
+                                      c)
+        seg, _ = msm.segments(cnt, ent.numel())
+        level, _, _ = k1_level(
+            f"joinsplit {label} n={n}", F, ct.b3_of("bls12-377", g2),
+            query["xy"].contiguous(), ent, seg, True,
+            build.ADD_TPIS[ct.form_of(F)])
+        k1.append(level)
+        log(f"[3m] K1 {label} MSM's first launch at n = {n} (c = {c}, "
+            f"{ct.form_of(F)}): every built TPI equal to plain; "
+            f"{json.dumps(level)}")
+
+    # the wrapper at batch 1 over the joinsplit proof: the [3d] keypair
+    # and the [3e] device key serve any nested vk of one primary input
+    circ, wkp = pp["circuit"], pp["wrapper_kp"]
+    check(len(jkp.vk.abc) == 1 + circ.num_inputs
+          == len(pp["nested_kp"].vk.abc),
+          "the joinsplit vk does not have the wrapper's one nested input")
+    vk_hash = circ.compute_nested_vk_hash(jkp.vk)
+    check(vk_hash != pp["vk_hash"], "joinsplit vk hashes as the dummy app's")
+    wprover = DeviceProver(gt.Groth16Torch("bw6-761", engine="msm4"),
+                           pp["wrapper_dpk"])
+    state = rng.getstate()
+    reset_counts()
+    t0 = time.time()
+    wep = circ.prove(jkp.vk, [ep], wkp.pk, rng, prover=wprover, check=True)
+    torch.cuda.synchronize()
+    wrap_s = time.time() - t0
+    counts["joinsplit wrap"] = read_counts()
+    check(counts["joinsplit wrap"]["bucket_reduce"]["launches"] > 0,
+          "bucket_reduce never launched by the joinsplit wrap")
+    check(list(wep.inputs) == [vk_hash, 1, ep.inputs[0]],
+          f"wrapper layout {wep.inputs} != [vk_hash, 1, js_hash]")
+    t0 = time.time()
+    check(host_w.verify(wep.inputs, wep.proof, wkp.vk),
+          "wrapper of the joinsplit proof does not verify")
+    phases = {k: round(v, 3) for k, v in wprover.last_timings.items()}
+    log(f"[3m] joinsplit proof wrapped at batch 1 ({wrap_s:.1f}s), valid "
+        f"for [vk_hash, 1, js_hash] ({time.time() - t0:.2f}s); prover "
+        f"phases {json.dumps(phases)}")
+    rng.setstate(state)
+    t0 = time.time()
+    bad = [ExtendedProof(proof=ep.proof, inputs=[ep.inputs[0] + 1])]
+    wep2 = circ.prove(jkp.vk, bad, wkp.pk, rng, prover=wprover, check=True)
+    check(wep2.inputs[1] == 0, "corrupt joinsplit input did not give bit 0")
+    check(host_w.verify(wep2.inputs, wep2.proof, wkp.vk),
+          "wrapper of a corrupt joinsplit input does not verify")
+    log(f"[3m] corrupt joinsplit input: result bit 0, wrapper valid "
+        f"({time.time() - t0:.1f}s)")
+    return {"counts": counts, "k1": k1,
+            "runs": {k: {x: v[x] for x in ("prove_s", "phases", "peak_gb",
+                                           "base_gb")}
+                     for k, v in runs.items()}}
+
+
+# ---------------------------------------------------------------------------
 # phase 4b: the port's bench main
 # ---------------------------------------------------------------------------
 
@@ -1781,6 +2063,9 @@ def main() -> int:
     main_path = prove_phase()
     main_path["counts"]["served"] = served_phase(main_path)["counts"]
     main_path["counts"].update(pghr13_phase(main_path)["counts"])
+    t0 = time.time()
+    main_path["counts"].update(joinsplit_phase(main_path)["counts"])
+    log(f"[3m] joinsplit phase done ({time.time() - t0:.1f}s)")
     t0 = time.time()
     bench_phase()
     log(f"[4] bench shapes done ({time.time() - t0:.1f}s)")

@@ -1,5 +1,6 @@
 """The port's entry points (zecale_tpu_torch: api/server_main.py,
-aggregate_e2e.py, bench.py, graft_entry.py, utils/profiling.py) on the
+aggregate_e2e.py, bench.py, graft_entry.py, rollup_e2e.py,
+utils/profiling.py) on the
 CPU: server_main's refusals, its keypair checks (Groth16 and PGHR13) and
 its provers, the phase profiler's
 records against the JAX package's, graft_entry's function against the
@@ -10,6 +11,7 @@ import io
 import json
 import os
 import pickle
+import random
 import tempfile
 import types
 
@@ -19,7 +21,7 @@ import torch
 import __graft_entry__ as graft_ref
 from zecale_tpu.api import server_main as server_main_ref
 from zecale_tpu.utils import profiling as profiling_ref
-from zecale_tpu_torch import aggregate_e2e, bench, graft_entry
+from zecale_tpu_torch import aggregate_e2e, bench, graft_entry, rollup_e2e
 from zecale_tpu_torch.api import server_main
 from zecale_tpu_torch.ec import host_curve as hc
 from zecale_tpu_torch.ec.proj_curve import ProjCurve
@@ -48,7 +50,7 @@ BENCH_KEYS = ["metric", "value", "unit", "vs_baseline", "engine", "points",
 
 
 @pytest.mark.parametrize("name", ["server_main", "aggregate_e2e", "bench",
-                                  "graft_entry"])
+                                  "graft_entry", "rollup_e2e"])
 def test_entry_point_raises_without_a_gpu(name):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the entry points run on it")
@@ -57,6 +59,7 @@ def test_entry_point_raises_without_a_gpu(name):
         "aggregate_e2e": lambda: aggregate_e2e.main([]),
         "bench": bench.run,
         "graft_entry": graft_entry.entry,
+        "rollup_e2e": lambda: rollup_e2e.main([]),
     }[name]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
@@ -301,3 +304,36 @@ def test_bench_main_on_the_cpu(monkeypatch, capsys):
     assert names[:4] == ["pack", "compile+first", "steady", "verify"]
     with open(tracked, "rb") as f:
         assert f.read() == before
+
+
+# ---------------------------------------------------------------------------
+# rollup_e2e
+# ---------------------------------------------------------------------------
+
+
+def test_rollup_keypair_cache_is_keyed_by_rng_and_r1cs(tmp_path):
+    from zecale_tpu_torch.aggregator import dummy_app as da
+
+    r1cs, _ = da.dummy_app_setup("bls12-377", random.Random(1))
+    made = []
+
+    def setup(cs, rng):
+        made.append(cs.num_constraints)
+        return ("keypair", rng.randrange(1 << 64))
+
+    def run(cs, seed=17):
+        rng = random.Random(seed)
+        kp, hit = rollup_e2e.cached_setup(str(tmp_path), "kp", cs, rng,
+                                          setup)
+        return kp, hit, rng.random()
+
+    first = run(r1cs)
+    assert first[1] is False and made == [1]
+    # a hit gives the keypair and leaves the rng where the setup left it
+    assert run(r1cs) == (first[0], True, first[2])
+    assert made == [1]
+    # another rng state or another constraint system misses
+    assert run(r1cs, seed=18)[1] is False
+    r1cs.add_constraint([(0, 1)], [(0, 1)], [(0, 1)])
+    assert run(r1cs)[1] is False
+    assert made == [1, 1, 2]
