@@ -82,27 +82,37 @@ Phases, each printing one flushed line with its seconds:
      ms at Fq 12 and Fq2), its proving key packed once, joinsplit 0
      proved with the msm4, msm8 and jac engines from one rng state
      (equal proofs, each valid, a tampered input rejected, each engine's
-     peak device memory) and again warm with msm4 under the profiler;
+     peak device memory; msm8 in the reference's 2 window chunks) and
+     again warm with msm4 under the profiler;
      K1 against its plain version in every built TPI at the first
      launches of the A and H MSMs (Fq 12) and the B2 MSM (Fq2) at
      n = 2^19; the joinsplit proof wrapped at batch 1 with the [3d]
      keypair and the [3e] device key (the joinsplit vk has the wrapper's
      one nested input; layout [vk_hash, 1, js_hash]; a corrupt joinsplit
-     input gives bit 0 in a valid wrapper);
+     input gives bit 0 in a valid wrapper); [3n] the batch-32 settlement
+     entry point (zecale_tpu_torch/batch32_e2e.py) in this process at
+     batch 2 (wrapper domain 2^17): its device setup, then the msm4 and
+     msm8 proves from one rng state, equal and valid for [vk_hash, 3, 100,
+     101], msm8 in the 2 window chunks of groth16_torch.msm8_chunks;
   4. bench.py's MSM shape on the three engines: BLS12-377 G1 at n = 2^18
      with uniform scalars from random.Random(42) and 64 cycled bases,
      checked against the folded host MSM, Mpoints/s after one warm-up run;
      and a BLS12-377 G2 (Fq2) MSM at n = 2^16, equal across the engines;
      [4b] the port's bench (zecale_tpu_torch/bench.py) in this process
      at its default shape without its e2e run: its host-oracle check must
-     pass and its line must carry bench.py's keys;
+     pass and its line must carry bench.py's keys; [4c] msm8 in window
+     chunks at BW6-761 G1 and G2, n = 2^17: 1 chunk, the rule's 2, the
+     first count with a ragged tail (4 chunks of 8 of the 30 windows at
+     c = 13), the host-combined route (ec/msm8.py:msm8_chunked_host) and
+     msm4 give one point, each run's ms and peak device memory printed;
   5. a JSON line of the kernels with their launches on the main path, then
      the card's name and power limit, then {"ok": true, "device": ...}.
 
 Each path of phase 3 ([3k]: its two aggregations; [3l]: its setup, its
 first prove and its served aggregation; [3m]: its setup, its three
-engines' proves and its wrap) runs with the launch counts set to 0 just
-before it and read just after.  Tolerance: exact.
+engines' proves and its wrap; [3n]: the whole batch32_e2e run) runs with
+the launch counts set to 0 just before it and read just after.
+Tolerance: exact.
 Field and group values are integers, so a kernel's limbs must equal the
 plain version's bit for bit.
 Any failed check raises and the script exits non-zero without the last
@@ -1909,6 +1919,12 @@ def joinsplit_phase(pp: dict) -> dict:
     busy = (prof["device_ms"] or 0.0) / (1e3 * prof["wall_s"])
     log("[3m] msm8 and jac joinsplit proofs and a warm msm4 one equal the "
         "msm4 proof bit for bit; a tampered input is rejected")
+    chunks = {"g1": gt.msm8_chunks("bls12-377", dpk.n_g1),
+              "g2": gt.msm8_chunks("bls12-377", dpk.n_g2)}
+    check(chunks["g1"] == 2, f"msm8 chunks at n = {dpk.n_g1}: {chunks}")
+    log(f"[3m] msm8 joinsplit prove in window chunks {json.dumps(chunks)} "
+        f"(n = {dpk.n_g1} G1, {dpk.n_g2} G2): peak "
+        f"{runs['msm8']['peak_gb']} GB, base {runs['msm8']['base_gb']} GB")
     log_profile(WARM, profiles, hists, "[3m]")
     log(f"[3m] warm msm4 joinsplit prove: the card busy {100 * busy:.1f}% "
         f"of {prof['wall_s']:.2f}s")
@@ -1991,6 +2007,123 @@ def joinsplit_phase(pp: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3n: the batch-32 settlement entry point at batch 2
+# ---------------------------------------------------------------------------
+
+
+def batch_phase() -> dict:
+    """[3n] zecale_tpu_torch.batch32_e2e in this process at batch 2 (the
+    wrapper at QAP domain 2^17) with the msm4 and the msm8 engine: its
+    device setup, both proofs from one rng state (equal, each verified,
+    the layout [vk_hash, 3, 100, 101]), msm8 in the reference's 2 window
+    chunks."""
+    from zecale_tpu_torch import batch32_e2e
+    from zecale_tpu_torch.snark import groth16_torch as gt
+
+    out = os.path.join(tempfile.gettempdir(), "chip_smoke_batch2.json")
+    t0 = time.time()
+    reset_counts()
+    rc = batch32_e2e.main(["--batch", "2", "--engine", "msm4,msm8",
+                           "--json", out])
+    counts = read_counts()
+    check(rc == 0, f"batch32_e2e --batch 2 exited {rc}")
+    with open(out) as f:
+        summary = json.load(f)
+    want = {"g1": gt.msm8_chunks("bw6-761", summary["n_g1"]),
+            "g2": gt.msm8_chunks("bw6-761", summary["n_g2"])}
+    check(summary["domain"] == 1 << 17 and want["g1"] == 2
+          and summary["proves"]["msm8"]["msm8_chunks"] == want,
+          f"batch-2 msm8 chunks {summary['proves']['msm8']['msm8_chunks']}"
+          f" at domain {summary['domain']}, not {want}")
+    for name in ("bucket_reduce", "proj_add", "proj_dbl_chain", "jac_add",
+                 "aff_add"):
+        check(counts[name]["launches"] > 0,
+              f"{name} never launched by batch32_e2e --batch 2")
+    log(f"[3n] batch32_e2e --batch 2 --engine msm4,msm8: equal proofs, "
+        f"valid; launches {json.dumps(counts)}; summary "
+        f"{json.dumps(summary)} ({time.time() - t0:.1f}s)")
+    return {"counts": counts, "summary": summary}
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: msm8 in window chunks
+# ---------------------------------------------------------------------------
+
+
+def chunk_phase() -> dict:
+    """[4c] msm8 at BW6-761 G1 and G2, n = 2^17 (the reference's rule gives
+    2 window chunks there): random scalars, with zeros, and random points
+    (fixed-base products of random scalars on the card), with duplicates
+    and points at infinity; 1 chunk, the rule's 2, a count with a ragged
+    tail, the host-combined route and msm4 must give one point.  Each run's
+    ms and peak device memory."""
+    import torch
+
+    from zecale_tpu_torch.ec import curve_torch as ct
+    from zecale_tpu_torch.ec import host_curve as hc
+    from zecale_tpu_torch.ec import msm, msm8
+    from zecale_tpu_torch.ff import params as P
+    from zecale_tpu_torch.ff.fp_torch import field
+    from zecale_tpu_torch.snark import groth16_torch as gt
+
+    curve, n = "bw6-761", 1 << 17
+    dev = torch.device("cuda")
+    r = P.CURVES[curve].r
+    c = msm8.default_window(n)
+    W = msm.num_windows(r.bit_length(), c)
+    rule = gt.msm8_chunks(curve, n)
+    check(rule == 2, f"msm8_chunks({curve}, 2^17) = {rule}, not 2")
+    # the first count above 2 whose last chunk is part padding
+    ragged = next(k for k in range(3, W)
+                  if k * msm8.chunk_width(W, k) > W)
+    prover = gt.Groth16Torch(curve)
+    rng = random.Random(43)
+    out = {}
+    for g2 in (False, True):
+        t0 = time.time()
+        name = f"{curve} {'G2' if g2 else 'G1'} n=2^17"
+        base = hc.generators(curve)[1 if g2 else 0]
+        pts = prover._batch_scalar_mul(
+            g2, [rng.randrange(1, r) for _ in range(n)], base)
+        pts[5] = pts[6]  # a duplicate point
+        for i in (7, 1000, n - 1):
+            pts[i] = None  # points at infinity
+        scalars = [rng.randrange(r) for _ in range(n)]
+        scalars[:3] = [0, 1, r - 1]
+        xy, inf = ct.pack_affine(ct.coord_field(curve, g2), pts, dev)
+        scal = field(r).pack(scalars, dev)
+        runs, res = {}, {}
+        for run, fn in (
+                ("msm8 1 chunk", lambda: msm8.msm8(curve, g2, scal, xy, inf)),
+                (f"msm8 {rule} chunks", lambda: msm8.msm8(
+                    curve, g2, scal, xy, inf, chunks=rule)),
+                (f"msm8 {ragged} chunks", lambda: msm8.msm8(
+                    curve, g2, scal, xy, inf, chunks=ragged)),
+                (f"msm8 {rule} chunks, host-combined",
+                 lambda: msm8.msm8_chunked_host(
+                     curve, g2, scal, xy, inf, c, rule)),
+                ("msm4", lambda: msm.msm(curve, g2, scal, xy, inf))):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.time()
+            res[run] = fn()
+            torch.cuda.synchronize()
+            runs[run] = {
+                "ms": round(1e3 * (time.time() - t1), 1),
+                "peak_gb": round(torch.cuda.max_memory_allocated() / 1e9, 3)}
+        for run, got in res.items():
+            check(got == res["msm8 1 chunk"],
+                  f"{name}: {run} != msm8 in 1 chunk")
+        out[name] = runs
+        pad = ragged * msm8.chunk_width(W, ragged) - W
+        log(f"[4c] {name} (c = {c}, W = {W}): msm8 in 1, {rule} and "
+            f"{ragged} window chunks (the last {pad} windows padding), "
+            f"host-combined and msm4 equal; {json.dumps(runs)} "
+            f"({time.time() - t0:.1f}s)")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4b: the port's bench main
 # ---------------------------------------------------------------------------
 
@@ -2066,9 +2199,13 @@ def main() -> int:
     t0 = time.time()
     main_path["counts"].update(joinsplit_phase(main_path)["counts"])
     log(f"[3m] joinsplit phase done ({time.time() - t0:.1f}s)")
+    main_path["counts"]["batch32_e2e batch 2"] = batch_phase()["counts"]
     t0 = time.time()
     bench_phase()
     log(f"[4] bench shapes done ({time.time() - t0:.1f}s)")
+    t0 = time.time()
+    chunk_phase()
+    log(f"[4c] chunked msm8 checks done ({time.time() - t0:.1f}s)")
     bench_entry_phase()
 
     def launches(name):

@@ -3,9 +3,10 @@ constraints, QAP domain 2^19), both tests slow.  On the CPU: one joinsplit
 proved by the port's Groth16Torch with the plain PyTorch versions of its
 kernels, against a keypair from the port's native C setup; the proof
 verifies on the host verifier.  (The three engines' proofs are held equal
-at this size on the card by chip_smoke.py [3m]; the msm8 and jac engines
-hold all their windows at once, 16.3 and 22.5 GB at n = 2^19 on an H100,
-too much for a CPU test.)  On the card (``cuda``; this file imports no
+at this size on the card by chip_smoke.py [3m]; the msm8 engine, in 2
+window chunks there, and the jac engine, with all its windows at once,
+take many GB of device memory at n = 2^19 (PERF.md section 5), too much
+for a CPU test.)  On the card (``cuda``; this file imports no
 JAX): the device setup gives the native setup's keypair from one rng
 state.  Tolerance: exact."""
 

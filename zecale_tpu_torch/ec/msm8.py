@@ -25,10 +25,14 @@ operation on the kernels of ``ec/proj_curve.py``: K2 ``proj_add`` and K3
   6. the Horner fold over windows: a K3 chain of c, then a K2 add, per
      window (587-597), and one host conversion of the result to affine.
 
-Left out: ``w_range`` chunking, ``msm8_streamed_jit`` (679) and
-``msm8_chunked_host`` (741).  They bound a TPU's HBM; here the W n sorted
-entries fit the card at the prover's sizes (BW6-761 at n = 2^16, c = 11:
-2.29 M entries of 288 bytes, 0.66 GB per point array).
+Window chunking (``msm8_jit``'s ``w_range`` 625, ``msm8_streamed_jit``
+679, ``msm8_chunked_host`` 741): the sorted working set holds one row per
+(window, point), so a range of w of the W windows bounds the peak by w n
+rows instead of W n.  ``msm8_window_range`` makes one range's partial,
+``msm8_streamed`` folds the partials of ``chunks`` ranges on the device and
+``msm8_chunked_host`` on the host; ``msm8(chunks=k)`` takes the streamed
+route, which ``Groth16Torch.prove`` picks by the reference's rule
+(``snark/groth16_torch.py:msm8_chunks``).
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from __future__ import annotations
 import torch
 
 from ..ff import params as P
+from . import host_curve as hc
 from . import msm
 from .proj_curve import ProjCurve
 
@@ -185,17 +190,90 @@ def msm8_core(crv: ProjCurve, buckets, signs, xy, inf, c: int):
     return acc
 
 
-def msm8(curve_name: str, g2: bool, scal, xy, inf, c: int = 0):
-    """sum_i scal[i] * P_i -> host affine point (None for the identity),
-    with the arguments of ``msm.msm``: (n, nl) int32 standard-form scalar
-    limbs, (n, 2, *F.shape) affine Montgomery points, (n,) infinity mask,
-    all on one device."""
+def window_range(planes, lo: int, w: int):
+    """Windows [lo, lo + w) of (W, n) digit planes, zero windows past W:
+    a tail range keeps the width w and its padding adds nothing
+    (``msm8_jit``'s pad and slice, 664-675)."""
+    W, n = planes.shape
+    pad = max(0, lo + w - W)
+    if pad:
+        planes = torch.cat([planes, planes.new_zeros(pad, n)])
+    return planes[lo : lo + w]
+
+
+def msm8_window_range(crv: ProjCurve, buckets, signs, xy, inf, c: int,
+                      lo: int, w: int):
+    """sum over windows lo <= j < lo + w of 2^(c (j - lo)) S_j, S_j the
+    window sums of (W, n) digits: the partial of one chunk, a projective
+    point (1, 3, *F.shape); its sorted rows are w n, not W n."""
+    return msm8_core(crv, window_range(buckets, lo, w),
+                     window_range(signs, lo, w), xy, inf, c)
+
+
+def _setup(curve_name: str, g2: bool, scal, xy, inf, c: int):
+    """Checks the shapes -> (curve, window bits, (W, n) buckets, signs,
+    contiguous points)."""
     n = xy.shape[0]
     if scal.shape[0] != n or inf.shape[0] != n:
         raise ValueError("msm8: scalars, points and mask differ in length")
-    crv = ProjCurve(curve_name, g2)
     c = c or default_window(n)
     buckets, signs = msm.signed_digits(
         scal, P.CURVES[curve_name].r.bit_length(), c)
-    acc = msm8_core(crv, buckets, signs, xy.contiguous(), inf, c)
+    return ProjCurve(curve_name, g2), c, buckets, signs, xy.contiguous()
+
+
+def chunk_width(W: int, chunks: int) -> int:
+    """Windows a chunk: per = ceil(W / chunks); the planes are padded to
+    chunks * per windows, and chunks wholly in the padding add nothing."""
+    if chunks < 1:
+        raise ValueError(f"msm8: {chunks} chunks")
+    return -(-W // chunks)
+
+
+def msm8_streamed(curve_name: str, g2: bool, scal, xy, inf, c: int,
+                  chunks: int):
+    """``msm8`` in ``chunks`` window ranges (``msm8_streamed_jit`` 679):
+    the digits made once, each range's partial made in turn (its sorted
+    rows freed before the next range starts), and the partials folded on
+    the device, most significant first: acc = 2^(c per) acc + part, one K3
+    chain and one K2 add a chunk.  -> host affine point (None for the
+    identity)."""
+    crv, c, buckets, signs, xy = _setup(curve_name, g2, scal, xy, inf, c)
+    per = chunk_width(buckets.shape[0], chunks)
+    acc = crv.identity_like(xy[:1])
+    for lo in reversed(range(0, buckets.shape[0], per)):
+        part = msm8_window_range(crv, buckets, signs, xy, inf, c, lo, per)
+        acc = crv.add(crv.dbl_chain(acc, c * per), part)
+    return crv.to_affine_host(acc)[0]
+
+
+def msm8_chunked_host(curve_name: str, g2: bool, scal, xy, inf, c: int,
+                      chunks: int):
+    """``msm8`` in ``chunks`` window ranges combined on the host
+    (``msm8_chunked_host`` 741): each partial to the host, scaled there by
+    2^(c lo) and summed.  -> host affine point (None for the identity)."""
+    crv, c, buckets, signs, xy = _setup(curve_name, g2, scal, xy, inf, c)
+    host = hc.g2_curve(curve_name) if g2 else hc.g1_curve(curve_name)
+    per = chunk_width(buckets.shape[0], chunks)
+    total = None
+    for lo in range(0, buckets.shape[0], per):
+        part = crv.to_affine_host(
+            msm8_window_range(crv, buckets, signs, xy, inf, c, lo, per))[0]
+        if part is not None:
+            for _ in range(c * lo):
+                part = host.dbl(part)
+        total = host.add(total, part)
+    return total
+
+
+def msm8(curve_name: str, g2: bool, scal, xy, inf, c: int = 0,
+         chunks: int = 1):
+    """sum_i scal[i] * P_i -> host affine point (None for the identity),
+    with the arguments of ``msm.msm``: (n, nl) int32 standard-form scalar
+    limbs, (n, 2, *F.shape) affine Montgomery points, (n,) infinity mask,
+    all on one device.  ``chunks`` > 1 takes ``msm8_streamed``."""
+    if chunks > 1:
+        return msm8_streamed(curve_name, g2, scal, xy, inf, c, chunks)
+    crv, c, buckets, signs, xy = _setup(curve_name, g2, scal, xy, inf, c)
+    acc = msm8_core(crv, buckets, signs, xy, inf, c)
     return crv.to_affine_host(acc)[0]

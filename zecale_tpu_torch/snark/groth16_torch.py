@@ -14,7 +14,8 @@ which ``snark/pghr13_torch.py`` shares).
     32-bit scalar limbs;
   * msm: A, B1, L, H in G1 and B2 in G2 through one of the three engines
     of the reference: ``"msm4"`` (``ec/msm.py``, bucket sums in the CUDA
-    kernel ``bucket_reduce``), ``"msm8"`` (``ec/msm8.py``) or ``"jac"``
+    kernel ``bucket_reduce``), ``"msm8"`` (``ec/msm8.py``, in the window
+    chunks of ``msm8_chunks``, as ``groth16_tpu.py:536-545``) or ``"jac"``
     (the reference's ``use_msm8=False`` branch: ``ec/msm_jac.py``); every
     kernel is in ``csrc/fast_kernels.cu``.
     With no engine given, it is
@@ -173,6 +174,17 @@ def abc_evaluations(r1cs: R1CS, assignment: Sequence[int]) -> tuple:
 ENGINES = ("msm4", "msm8", "jac")
 
 
+def msm8_chunks(curve_name: str, n: int) -> int:
+    """Window chunks of an msm8 MSM over n points, by the reference's rule
+    (``groth16_tpu.py:504-507, 536``): a unit of 2^16 points when the
+    curve's base field q takes 96 bytes (BW6-761), else 2^18, and
+    max(1, n // unit) chunks.  The rule reads the base field for G2 too,
+    so BLS12-377 G2 over Fq2 takes the 2^18 unit."""
+    unit = 1 << 16 if -(-P.CURVES[curve_name].q.bit_length() // 8) >= 96 \
+        else 1 << 18
+    return max(1, n // unit)
+
+
 def default_engine() -> str:
     """The reference's choice (``groth16_tpu.py:510-513``): msm8 when
     ``ZECALE_USE_MSM8`` is set to anything non-empty, else msm4."""
@@ -329,12 +341,14 @@ class Groth16Torch(TorchSnarkBase):
         l_scal = self._scalars(asg[num_pub:], dpk.n_g1)
         t0 = mark("digitize")
 
-        engine = {"msm4": msm.msm, "msm8": msm8.msm8,
-                  "jac": msm_jac.msm}[self.engine]
-
         def run(g2, scal, query):
-            return engine(self.curve_name, g2, scal, query["xy"],
-                          query["inf"])
+            xy, inf = query["xy"], query["inf"]
+            if self.engine == "msm8":
+                return msm8.msm8(
+                    self.curve_name, g2, scal, xy, inf,
+                    chunks=msm8_chunks(self.curve_name, xy.shape[0]))
+            engine = msm.msm if self.engine == "msm4" else msm_jac.msm
+            return engine(self.curve_name, g2, scal, xy, inf)
 
         ev_a_h = run(False, asg_g1, dpk.a_query)
         ev_b1_h = run(False, asg_g1, dpk.b_g1_query)
