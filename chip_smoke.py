@@ -105,13 +105,31 @@ Phases, each printing one flushed line with its seconds:
      first count with a ragged tail (4 chunks of 8 of the 30 windows at
      c = 13), the host-combined route (ec/msm8.py:msm8_chunked_host) and
      msm4 give one point, each run's ms and peak device memory printed;
-  5. a JSON line of the kernels with their launches on the main path, then
+  5. the sharded paths on a 4-shard mesh (parallel/: one card a shard on a
+     machine with 4, else all four on cuda:0, asked for explicitly; its
+     devices and transport printed): [5a] fft_dist.h_pipeline_sharded at
+     the wrapper's domain 2^16 over BW6-761 Fr equal to
+     fft_torch.h_pipeline permuted by rev bit for bit, ifft_sharded ->
+     fft_sharded round-tripping, and msm4_sharded (K1), msm8_sharded (K2,
+     K3) and msm_sharded (K4-K6) at BW6-761 G1 n = 2^16 and BLS12-377 G2
+     n = 2^14, each equal to single-device msm4's point, each with its ms
+     beside its single-device engine's; [5b] the [3f] wrapper proved again
+     by Groth16Torch(engine="msm4" and "msm8").prove(mesh=...) from [3g]'s
+     rng state: the same proof, valid for [vk_hash, 1, 7], its fft and
+     msm phases beside the single-device ones; [5c]
+     graft_entry.dryrun_multichip(4) and multihost_dryrun with 2 processes
+     x 2 shards on cuda:0 over gloo (exchanges staged through host
+     memory), and over nccl, one card a shard, where the machine has 4.
+     ``python3 chip_smoke.py --mesh-only`` builds the kernels and runs
+     [5] alone, on a wrapper keypair from the device setup;
+  6. a JSON line of the kernels with their launches on the main path, then
      the card's name and power limit, then {"ok": true, "device": ...}.
 
 Each path of phase 3 ([3k]: its two aggregations; [3l]: its setup, its
 first prove and its served aggregation; [3m]: its setup, its three
-engines' proves and its wrap; [3n]: the whole batch32_e2e run) runs with
-the launch counts set to 0 just before it and read just after.
+engines' proves and its wrap; [3n]: the whole batch32_e2e run) and of
+phase 5 (each sharded MSM, each prove with the mesh, dryrun_multichip)
+runs with the launch counts set to 0 just before it and read just after.
 Tolerance: exact.
 Field and group values are integers, so a kernel's limbs must equal the
 plain version's bit for bit.
@@ -124,7 +142,7 @@ of the rng state they were made from and the circuit's size; the circuit
 holds witness closures, cannot be
 pickled, and is rebuilt (a few seconds).
 
-Usage: python3 chip_smoke.py
+Usage: python3 chip_smoke.py [--mesh-only]
 """
 
 import hashlib
@@ -1287,7 +1305,8 @@ def prove_phase() -> dict:
             "runs": {k: {"prove_s": v["prove_s"], "phases": v["phases"]}
                      for k, v in runs.items()},
             "nested_kp": nkp, "nested_proof": nested, "wrapper_kp": wkp,
-            "vk_hash": vk_hash, "circuit": circ, "wrapper_dpk": dpk}
+            "vk_hash": vk_hash, "circuit": circ, "wrapper_dpk": dpk,
+            "prove_state": state, "wrapper_proof": wep}
 
 
 # ---------------------------------------------------------------------------
@@ -2155,9 +2174,302 @@ def bench_entry_phase() -> dict:
     return out
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# phase 5: the sharded paths on a 4-shard mesh
+# ---------------------------------------------------------------------------
+
+
+def timed(fn) -> tuple:
+    """(fn(), its ms on the host clock between two synchronizes, the peak
+    GB allocated on cuda:0 during it, what earlier phases hold
+    included)."""
     import torch
 
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(0)
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, round(1e3 * (time.time() - t0), 1),
+            round(torch.cuda.max_memory_allocated(0) / 1e9, 3))
+
+
+def counted_run(counts: dict, name: str, fn):
+    """fn() with the launch counts set to 0 just before it and read into
+    counts[name] just after."""
+    import torch
+
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts[name] = read_counts()
+    return out
+
+
+#: [5a]'s sizes: the wrapper's domain (its FFTs and G1 MSMs), and the
+#: BLS12-377 G2 MSM's points
+MESH_N = 1 << 16
+MESH_N_G2 = 1 << 14
+
+
+def mesh4():
+    """4 shards: one card a shard where the machine has 4, else all four
+    on cuda:0 (asked for explicitly)."""
+    import torch
+
+    from zecale_tpu_torch.parallel.mesh import make_mesh
+
+    if torch.cuda.device_count() >= 4:
+        return make_mesh(4)
+    return make_mesh(4, devices=["cuda:0"] * 4)
+
+
+def sharded_msm_checks(mesh, counts: dict, curve: str, g2: bool, scal, xy,
+                       inf) -> dict:
+    """msm4_sharded, msm8_sharded and msm_sharded against single-device
+    msm4's point, each beside its single-device engine's ms; each sharded
+    run's launches into counts."""
+    from zecale_tpu_torch.ec import msm, msm8, msm_jac
+    from zecale_tpu_torch.ff import params as P
+    from zecale_tpu_torch.parallel import sharded
+
+    n = xy.shape[0]
+    name = f"{curve} {'G2' if g2 else 'G1'} n=2^{n.bit_length() - 1}"
+    nbits = P.CURVES[curve].r.bit_length()
+    c8, cj = msm8.default_window(n), msm_jac.MSM_WINDOW_C
+    want, ms4, gb4 = timed(lambda: msm.msm(curve, g2, scal, xy, inf))
+    _, ms8, gb8 = timed(lambda: msm8.msm8(curve, g2, scal, xy, inf, c8))
+    _, msj, gbj = timed(lambda: msm_jac.msm(curve, g2, scal, xy, inf, cj))
+    digits = msm_jac.scalar_digit_planes(scal, nbits, cj)
+    out = {}
+    for eng, single_ms, single_gb, kernels, run in (
+            ("msm4", ms4, gb4, ("bucket_reduce", "proj_add",
+                                "proj_dbl_chain"),
+             lambda: sharded.msm4_sharded(curve, mesh, scal, xy, inf,
+                                          g2=g2)),
+            ("msm8", ms8, gb8, ("proj_add", "proj_dbl_chain"),
+             lambda: sharded.msm8_sharded(curve, mesh, scal, xy, inf, c8,
+                                          g2=g2)),
+            ("jac", msj, gbj, ("jac_add", "jac_dbl_chain", "aff_add"),
+             lambda: sharded.msm_sharded(curve, mesh, digits, xy, inf, cj,
+                                         g2=g2))):
+        key = f"[5a] {eng}_sharded {name}"
+        pt, ms, gb = timed(lambda: counted_run(counts, key, run))
+        check(sharded.point_to_host(curve, g2, pt) == want,
+              f"{key} != single-device msm4")
+        for k in kernels:
+            check(counts[key][k]["launches"] > 0, f"{k} never launched in "
+                  f"{key}")
+        out[eng] = {"sharded_ms": ms, "single_ms": single_ms,
+                    "sharded_peak_gb": gb, "single_peak_gb": single_gb}
+    log(f"[5a] {name}: msm4_sharded, msm8_sharded (c = {c8}) and "
+        f"msm_sharded (c = {cj}) equal single-device msm4; ms and peak GB "
+        f"on cuda:0 {json.dumps(out)}")
+    return out
+
+
+def mesh_phase(pp: dict) -> dict:
+    """[5] The sharded paths on a 4-shard mesh ([5a] the distributed QAP
+    division and FFTs at the wrapper's domain 2^16 over BW6-761 Fr, the
+    three sharded MSMs at BW6-761 G1 n = 2^16 and BLS12-377 G2 n = 2^14;
+    [5b] the wrapper's msm4 and msm8 proves with the mesh; [5c] the dry
+    runs).  -> {"counts": launches of each sharded path}."""
+    import torch
+
+    from zecale_tpu_torch import graft_entry, multihost_dryrun
+    from zecale_tpu_torch.aggregate_e2e import DeviceProver
+    from zecale_tpu_torch.ec import curve_torch as ct
+    from zecale_tpu_torch.ff import params as P
+    from zecale_tpu_torch.ff.fp_torch import field
+    from zecale_tpu_torch.parallel import fft_dist
+    from zecale_tpu_torch.poly import fft_torch
+    from zecale_tpu_torch.snark.groth16 import ExtendedProof, Groth16
+    from zecale_tpu_torch.snark.groth16_torch import Groth16Torch
+
+    t_phase = time.time()
+    counts = {}
+    mesh = mesh4()
+    log(f"[5a] mesh: {mesh.describe()}; devices "
+        f"{[str(d) for d in mesh.devices]}, transport {mesh.transport}")
+
+    # the distributed QAP division at the wrapper's domain, bit for bit
+    r = P.CURVES["bw6-761"].r
+    Fr, n = field(r), MESH_N
+    rng = random.Random(51)
+    dev = mesh.devices[0]
+    az, bz, cz = (Fr.pack_mont([rng.randrange(r) for _ in range(n)], dev)
+                  for _ in range(3))
+    rev = torch.from_numpy(fft_dist.bitrev_permutation(n).astype(
+        "int64")).to(dev)
+    h1, single_ms, single_gb = timed(
+        lambda: fft_torch.h_pipeline(az, bz, cz, r))
+    hs, first_ms, _ = timed(lambda: fft_dist.h_pipeline_sharded(
+        mesh, r, az, bz, cz))
+    hs, warm_ms, warm_gb = timed(lambda: fft_dist.h_pipeline_sharded(
+        mesh, r, az, bz, cz))
+    check(torch.equal(mesh.gather(hs), h1[rev]),
+          "h_pipeline_sharded != h_pipeline permuted by rev")
+    back, rt_ms, _ = timed(lambda: fft_dist.fft_sharded(
+        mesh, fft_dist.ifft_sharded(mesh, az, r), r))
+    check(torch.equal(mesh.gather(back), az),
+          "ifft_sharded -> fft_sharded does not round-trip")
+    fft_ms = {"h_pipeline single": single_ms,
+              "h_pipeline_sharded first": first_ms,
+              "h_pipeline_sharded warm": warm_ms,
+              "ifft_sharded + fft_sharded": rt_ms,
+              "peak GB on cuda:0, single / sharded warm": [single_gb,
+                                                           warm_gb]}
+    log(f"[5a] BW6-761 Fr n = {n}: h_pipeline_sharded equals h_pipeline "
+        f"permuted by rev bit for bit (first run with its plans); "
+        f"ifft_sharded -> fft_sharded round-trips; ms {json.dumps(fft_ms)}")
+    del az, bz, cz, h1, hs, back
+
+    # the three sharded MSMs: the wrapper key's A query (its points, the
+    # padding at infinity) with random scalars, some zero
+    q = pp["wrapper_dpk"].a_query
+    scal = [rng.randrange(r) for _ in range(n)]
+    scal[:3] = [0, 1, r - 1]
+    msms = {"bw6-761 G1": sharded_msm_checks(
+        mesh, counts, "bw6-761", False, Fr.pack(scal, dev), q["xy"][:n],
+        q["inf"][:n])}
+    # BLS12-377 G2 over Fq2: fixed-base products on the card
+    t0 = time.time()
+    curve, n2 = "bls12-377", MESH_N_G2
+    rn = P.CURVES[curve].r
+    pts = Groth16Torch(curve, dev).batch_mul_g2(
+        [rng.randrange(1, rn) for _ in range(n2)])
+    pts[7] = None
+    xy, inf = ct.pack_affine(ct.coord_field(curve, True), pts, dev)
+    scal2 = [rng.randrange(rn) for _ in range(n2)]
+    scal2[0] = 0
+    log(f"[5a] {n2} BLS12-377 G2 points made ({time.time() - t0:.1f}s)")
+    msms["bls12-377 G2"] = sharded_msm_checks(
+        mesh, counts, curve, True, field(rn).pack(scal2, dev), xy, inf)
+
+    # [5b] the wrapper's proves with the mesh, from [3g]'s rng state
+    circ, wkp, dpk = pp["circuit"], pp["wrapper_kp"], pp["wrapper_dpk"]
+    eps = [ExtendedProof(proof=pp["nested_proof"], inputs=[7])]
+    host_w = Groth16("bw6-761")
+    proves = {}
+    for eng in ("msm4", "msm8"):
+        dev_prover = DeviceProver(Groth16Torch("bw6-761", engine=eng), dpk,
+                                  mesh=mesh)
+        rr = random.Random()
+        rr.setstate(pp["prove_state"])
+        dpk.h_query_rev = None
+        wep, prove_ms, peak_gb = timed(lambda: counted_run(
+            counts, f"[5b] {eng} prove, mesh", lambda: circ.prove(
+                pp["nested_kp"].vk, eps, wkp.pk, rr, prover=dev_prover,
+                check=True)))
+        prove_s = prove_ms / 1e3
+        check(dpk.h_query_rev is not None
+              and dpk.h_query_rev[0] == circ.r1cs.qap_degree,
+              f"{eng} prove with the mesh did not take the mesh route")
+        check(wep.proof == pp["wrapper_proof"].proof
+              and list(wep.inputs) == list(pp["wrapper_proof"].inputs),
+              f"{eng} proof with the mesh != the single-device proof")
+        check(host_w.verify(wep.inputs, wep.proof, wkp.vk),
+              f"{eng} proof with the mesh does not verify")
+        check(list(wep.inputs) == [pp["vk_hash"], 1, 7],
+              f"layout {wep.inputs[:3]} != [vk_hash, 1, 7]")
+        phases = {k: round(v, 3) for k, v in dev_prover.last_timings.items()}
+        single = pp["runs"].get(f"{eng} warm", pp["runs"][eng])["phases"]
+        proves[eng] = {"prove_s": round(prove_s, 2), "phases": phases,
+                       "single_phases": single, "peak_gb": peak_gb}
+        log(f"[5b] {eng} wrapper proof with the mesh ({prove_s:.1f}s, peak "
+            f"{peak_gb} GB on cuda:0) equals "
+            f"the single-device proof, verifies, layout [vk_hash, 1, 7]; "
+            f"phases {json.dumps(phases)}, single-device {json.dumps(single)}"
+            f"; launches {json.dumps(counts[f'[5b] {eng} prove, mesh'])}")
+
+    # [5c] the dry runs on the card
+    t0 = time.time()
+    cards = torch.cuda.device_count()
+    counted_run(counts, "[5c] dryrun_multichip(4)",
+                lambda: graft_entry.dryrun_multichip(
+                    4, device=None if cards >= 4 else str(dev)))
+    log(f"[5c] dryrun_multichip(4) on "
+        f"{'one card a shard' if cards >= 4 else dev} passed "
+        f"({time.time() - t0:.1f}s)")
+    t0 = time.time()
+    rc = multihost_dryrun.launcher(nproc=2, shards=2, device=str(dev))
+    check(rc == 0, f"multihost_dryrun (gloo) exited {rc}")
+    log(f"[5c] multihost_dryrun: 2 processes x 2 shards on {dev} over gloo, "
+        f"the exchanges staged through host memory, passed "
+        f"({time.time() - t0:.1f}s)")
+    if cards >= 4:
+        t0 = time.time()
+        rc = multihost_dryrun.launcher(nproc=2, shards=2, backend="nccl")
+        check(rc == 0, f"multihost_dryrun (nccl) exited {rc}")
+        log(f"[5c] multihost_dryrun: 2 processes x 2 shards, one card a "
+            f"shard, over nccl, passed ({time.time() - t0:.1f}s)")
+    else:
+        log("[5c] nccl not run: NCCL refuses two ranks on one card, and "
+            f"this machine has {cards}")
+    log(f"[5] sharded paths done ({time.time() - t_phase:.1f}s)")
+    return {"counts": counts, "fft_ms": fft_ms, "msm_ms": msms,
+            "proves": proves}
+
+
+def mesh_prep() -> dict:
+    """What [5] takes from phase 3, made alone (``--mesh-only``): the
+    nested dummy-app keypair (host setup) and proof (on the card) from
+    Random(11), the batch-1 wrapper, its keypair from the device setup,
+    its device key, and its single-device msm4 and msm8 proofs from one
+    rng state (equal)."""
+    import torch
+
+    from zecale_tpu_torch.aggregate_e2e import DeviceProver
+    from zecale_tpu_torch.aggregator import dummy_app as da
+    from zecale_tpu_torch.aggregator.circuit import AggregatorCircuit
+    from zecale_tpu_torch.snark.groth16 import ExtendedProof
+    from zecale_tpu_torch.snark.groth16_torch import Groth16Torch
+
+    t0 = time.time()
+    rng = random.Random(11)
+    r1cs_n, nkp = da.dummy_app_setup("bls12-377", rng)
+    nested = Groth16Torch("bls12-377", engine="msm4").prove(
+        r1cs_n, nkp.pk, da.dummy_app_assignment("bls12-377", 7), rng)
+    circ = AggregatorCircuit(1, 1)
+    wkp = Groth16Torch("bw6-761", engine="jac").generate_setup(circ.r1cs,
+                                                               rng)
+    dpk = Groth16Torch("bw6-761").pack_pk(wkp.pk,
+                                          circ.r1cs.num_primary + 1)
+    torch.cuda.synchronize()
+    log(f"[5] prep: nested keypair and proof, wrapper device setup and key "
+        f"({time.time() - t0:.1f}s)")
+    state = rng.getstate()
+    eps = [ExtendedProof(proof=nested, inputs=[7])]
+    runs, proofs = {}, {}
+    for eng in ("msm4", "msm8"):
+        dev_prover = DeviceProver(Groth16Torch("bw6-761", engine=eng), dpk)
+        rr = random.Random()
+        rr.setstate(state)
+        t0 = time.time()
+        proofs[eng] = circ.prove(nkp.vk, eps, wkp.pk, rr, prover=dev_prover,
+                                 check=True)
+        runs[eng] = {"prove_s": time.time() - t0,
+                     "phases": {k: round(v, 3) for k, v in
+                                dev_prover.last_timings.items()}}
+    check(proofs["msm4"].proof == proofs["msm8"].proof,
+          "single-device msm4 and msm8 wrapper proofs differ")
+    log(f"[5] prep: single-device msm4 and msm8 wrapper proofs equal; "
+        f"{json.dumps(runs)}")
+    return {"circuit": circ, "wrapper_kp": wkp, "wrapper_dpk": dpk,
+            "nested_kp": nkp, "nested_proof": nested,
+            "vk_hash": circ.compute_nested_vk_hash(nkp.vk),
+            "prove_state": state, "wrapper_proof": proofs["msm4"],
+            "runs": runs}
+
+
+def main(argv=None) -> int:
+    import torch
+
+    argv = sys.argv[1:] if argv is None else argv
+    mesh_only = argv == ["--mesh-only"]
+    if argv and not mesh_only:
+        print("usage: python3 chip_smoke.py [--mesh-only]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on a GPU",
               file=sys.stderr)
@@ -2167,7 +2479,7 @@ def main() -> int:
 
     card = smi()
     log(f"[1] card: {card}; torch {torch.__version__}, CUDA "
-        f"{torch.version.cuda}")
+        f"{torch.version.cuda}; {torch.cuda.device_count()} card(s)")
     t0 = time.time()
     build.cuda_kernels()
     build_s = time.time() - t0
@@ -2175,6 +2487,13 @@ def main() -> int:
         log(f"[1] built {line}")
     log(f"[1] kernel build {build_s:.1f}s, {len(build.last_build)} nvcc "
         f"jobs started together (budget 60s)")
+    if mesh_only:
+        out = mesh_phase(mesh_prep())
+        print(json.dumps({"mesh_counts": out["counts"]}), flush=True)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "mesh_only": True,
+                          "count": torch.cuda.device_count()}), flush=True)
+        return 0
     sass = sass_counts({stem: info["path"]
                         for stem, info in build.last_build.items()})
     for lib, counts in sorted(sass.items()):
@@ -2207,6 +2526,7 @@ def main() -> int:
     chunk_phase()
     log(f"[4c] chunked msm8 checks done ({time.time() - t0:.1f}s)")
     bench_entry_phase()
+    main_path["counts"].update(mesh_phase(main_path)["counts"])
 
     def launches(name):
         return sum(c[name]["launches"] for c in main_path["counts"].values())

@@ -30,7 +30,10 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
     rel = {os.path.relpath(p, REPO) for p in files}
     for name in ("gadgets/blake2s.py", "zeth/__init__.py", "zeth/notes.py",
                  "zeth/merkle.py", "zeth/joinsplit.py",
-                 "zeth/dev_vectors.py", "rollup_e2e.py", "batch32_e2e.py"):
+                 "zeth/dev_vectors.py", "rollup_e2e.py", "batch32_e2e.py",
+                 "parallel/__init__.py", "parallel/mesh.py",
+                 "parallel/fft_dist.py", "parallel/sharded.py",
+                 "multihost_dryrun.py"):
         assert os.path.join("zecale_tpu_torch", name) in rel, name
     for path in files:
         with open(path) as f:
@@ -79,6 +82,11 @@ def test_main_path_imports_with_jax_unimportable():
         "import zecale_tpu_torch.zeth.dev_vectors\n"
         "import zecale_tpu_torch.rollup_e2e\n"
         "import zecale_tpu_torch.batch32_e2e\n"
+        "import zecale_tpu_torch.parallel\n"
+        "import zecale_tpu_torch.parallel.mesh\n"
+        "import zecale_tpu_torch.parallel.fft_dist\n"
+        "import zecale_tpu_torch.parallel.sharded\n"
+        "import zecale_tpu_torch.multihost_dryrun\n"
         "loaded = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'zecale_tpu') and sys.modules[m] is not None]\n"
         "assert not loaded, loaded\n"

@@ -191,17 +191,21 @@ def _check(cond, msg: str) -> None:
 
 
 class DeviceProver:
-    """Adapter fixing the device pk for AggregatorCircuit.prove."""
+    """Adapter fixing the device pk, and a mesh where one is given (only
+    ``Groth16Torch.prove`` takes one), for AggregatorCircuit.prove."""
 
-    def __init__(self, prover, dpk):
+    def __init__(self, prover, dpk, mesh=None):
         self.prover = prover
         self.dpk = dpk
+        self.mesh = mesh
         self.last_timings = {}
 
     def prove(self, r1cs, pk, assignment, rng=None):
         timings = {}
+        extra = {} if self.mesh is None else {"mesh": self.mesh}
         proof = self.prover.prove(
-            r1cs, pk, assignment, rng, device_pk=self.dpk, timings=timings
+            r1cs, pk, assignment, rng, device_pk=self.dpk, timings=timings,
+            **extra
         )
         self.last_timings = timings
         print("    prover phases:",

@@ -25,7 +25,8 @@ design for the GPU rather than a translation:
   5. the W*c subset sums (a few hundred points) go to the host, which
      normalises them and runs the Horner fold over bit positions c*w + k
      with the host curve's Jacobian law (Python ints), returning an affine
-     point.
+     point.  ``msm_projective`` folds them on the device instead (K3 and
+     K2), for the sharded msm4 of ``parallel/sharded.py``.
 
 The kernel's wrapper takes its plain version ``bucket_reduce_ref`` only for
 tensors on the CPU; for CUDA tensors it launches the kernel or raises.
@@ -263,6 +264,50 @@ def host_curve(curve_name: str, g2: bool):
     return hc.g2_curve(curve_name) if g2 else hc.g1_curve(curve_name)
 
 
+def subset_sums(curve_name: str, g2: bool, scal, xy, inf, c: int):
+    """Steps 1-4: the W*c subset sums S[w, k], run w*c + k, as
+    (W*c, 3, *F.shape) projective points on the device; the MSM is
+    sum_j 2^j S_j over j = c*w + k.  Arguments as ``msm``'s."""
+    F = ct.coord_field(curve_name, g2)
+    b3 = ct.b3_of(curve_name, g2)
+    n = xy.shape[0]
+    if scal.shape[0] != n or inf.shape[0] != n:
+        raise ValueError("msm: scalars, points and mask differ in length")
+    nbits = P.CURVES[curve_name].r.bit_length()
+    W = num_windows(nbits, c)
+    ent, counts = bucket_entries(scal, inf, nbits, c)
+    sums = reduce_runs(xy.contiguous(), ent, counts, F, b3, affine=True)
+    ent2, counts2 = subset_entries(W, c, xy.device)
+    return reduce_runs(sums, ent2, counts2, F, b3, affine=False)
+
+
+def fold_subsets(crv: pc.ProjCurve, subs, c: int):
+    """(B, W*c, 3, *F.shape) subset sums of B MSMs -> their B projective
+    points (B, 3, *F.shape), on the device: a Horner over k = c-1 .. 0 for
+    all windows at once (one K3 doubling and one K2 add of B W points a
+    step), then over the windows, most significant first (a K3 chain of c
+    and a K2 add of B points a window), as ``msm8_core`` folds its window
+    sums."""
+    s = subs.reshape(subs.shape[0], -1, c, *subs.shape[2:])
+    t = s[:, :, c - 1]
+    for k in range(c - 2, -1, -1):
+        t = crv.add(crv.dbl(t), s[:, :, k])
+    acc = t[:, -1]
+    for w in range(t.shape[1] - 2, -1, -1):
+        acc = crv.add(crv.dbl_chain(acc, c), t[:, w])
+    return acc
+
+
+def msm_projective(curve_name: str, g2: bool, scal, xy, inf, c: int = 0):
+    """The MSM as one projective point (1, 3, *F.shape) on the device: the
+    subset sums folded there (``fold_subsets``), where ``msm`` folds them
+    on the host.  The device partial that ``msm4_sharded`` combines.
+    Arguments as ``msm``'s."""
+    c = c or default_window(xy.shape[0])
+    subs = subset_sums(curve_name, g2, scal, xy, inf, c)
+    return fold_subsets(pc.ProjCurve(curve_name, g2), subs.unsqueeze(0), c)
+
+
 def msm(curve_name: str, g2: bool, scal, xy, inf, c: int = 0):
     """sum_i scal[i] * P_i -> host affine point (None for the identity).
 
@@ -272,19 +317,8 @@ def msm(curve_name: str, g2: bool, scal, xy, inf, c: int = 0):
     BLS12-377 G2); ``inf``: (n,) bool mask of points at infinity.  All
     three on one device."""
     F = ct.coord_field(curve_name, g2)
-    b3 = ct.b3_of(curve_name, g2)
-    n = xy.shape[0]
-    if scal.shape[0] != n or inf.shape[0] != n:
-        raise ValueError("msm: scalars, points and mask differ in length")
-    nbits = P.CURVES[curve_name].r.bit_length()
-    c = c or default_window(n)
-    W = num_windows(nbits, c)
-    dev = xy.device
-
-    ent, counts = bucket_entries(scal, inf, nbits, c)
-    sums = reduce_runs(xy.contiguous(), ent, counts, F, b3, affine=True)
-    ent2, counts2 = subset_entries(W, c, dev)
-    subs = reduce_runs(sums, ent2, counts2, F, b3, affine=False)
+    subs = subset_sums(curve_name, g2, scal, xy, inf,
+                       c or default_window(xy.shape[0]))
 
     # Horner over bit positions j = c*w + k on the host, in Jacobian
     # coordinates: one field inversion in all instead of one per step

@@ -145,6 +145,13 @@ def _stacked_add(crv: ProjCurve, parts_a: list, parts_b: list) -> list:
 def msm8_core(crv: ProjCurve, buckets, signs, xy, inf, c: int):
     """(W, n) bucket indices and signs + affine points -> the MSM as one
     projective point (1, 3, *F.shape) on the device."""
+    return fold_windows(
+        crv, window_sums(crv, buckets, signs, xy, inf, c).unsqueeze(0), c)
+
+
+def window_sums(crv: ProjCurve, buckets, signs, xy, inf, c: int):
+    """Steps 1-5: the W window sums sum_b b B_b as (W, 3, *F.shape)
+    projective points on the device."""
     W, n = buckets.shape
     K = 1 << (c - 1)
     stride = K + 2
@@ -180,13 +187,17 @@ def msm8_core(crv: ProjCurve, buckets, signs, xy, inf, c: int):
         acc2, run2, wtot = _stacked_add(
             crv, [acc2, run2, wtot], [run2, run[g], wacc[g]])
     # window sums: sum_b b B_b = acc2 + run2 + G wtot
-    partials = crv.add(crv.add(acc2, run2),
-                       crv.dbl_chain(wtot, G.bit_length() - 1))
+    return crv.add(crv.add(acc2, run2),
+                   crv.dbl_chain(wtot, G.bit_length() - 1))
 
-    # Horner over windows, most significant first
-    acc = crv.identity_like(partials[:1])
-    for w in range(W - 1, -1, -1):
-        acc = crv.add(crv.dbl_chain(acc, c), partials[w : w + 1])
+
+def fold_windows(crv: ProjCurve, partials, c: int):
+    """Step 6, the Horner over windows, most significant first, of
+    (B, W, 3, *F.shape) window sums of B MSMs: a K3 chain of c and a K2
+    add of B points a window -> (B, 3, *F.shape)."""
+    acc = crv.identity_like(partials[:, 0])
+    for w in range(partials.shape[1] - 1, -1, -1):
+        acc = crv.add(crv.dbl_chain(acc, c), partials[:, w])
     return acc
 
 

@@ -176,6 +176,13 @@ def msm_pippenger(crv: JacCurve, digits, xy, inf, c: int):
     """sum_i s_i P_i (``JacCurve.msm_pippenger``): (W, n) unsigned digits,
     most significant window first; (n, 2, *F.shape) affine points with an
     (n,) infinity mask -> one Jacobian point (3, *F.shape) on the device."""
+    return fold_windows(
+        crv, window_partials(crv, digits, xy, inf, c).unsqueeze(0), c)[0]
+
+
+def window_partials(crv: JacCurve, digits, xy, inf, c: int):
+    """Steps 1-4: the W window sums, most significant first, as
+    (W, 3, *F.shape) Jacobian points on the device."""
     W, n = digits.shape
     sentinel = 1 << c
     d, order = torch.sort(digits, dim=1, stable=True)
@@ -206,13 +213,18 @@ def msm_pippenger(crv: JacCurve, digits, xy, inf, c: int):
         p = crv.lift(axy, ainf)
     d = torch.where(d >= sentinel, 0, d)
     bits = torch.stack([(d >> (c - 1 - b)) & 1 for b in range(c)])
-    partials = crv.msm(bits, p)  # (W, 3, *F.shape)
-    # Horner over windows, most significant first; the reference's first
-    # step, 2^c O + partial_0, is partial_0 exactly
-    acc = partials[:1]
-    for w in range(1, W):
-        acc = crv.add(crv.dbl_chain(acc, c), partials[w: w + 1])
-    return acc[0]
+    return crv.msm(bits, p)  # (W, 3, *F.shape)
+
+
+def fold_windows(crv: JacCurve, partials, c: int):
+    """Step 5, the Horner over windows, most significant first, of
+    (B, W, 3, *F.shape) window sums of B MSMs: a K5 chain of c and a K4
+    add of B points a window -> (B, 3, *F.shape).  The reference's first
+    step, 2^c O + partial_0, is partial_0 exactly."""
+    acc = partials[:, 0]
+    for w in range(1, partials.shape[1]):
+        acc = crv.add(crv.dbl_chain(acc, c), partials[:, w])
+    return acc
 
 
 def msm(curve_name: str, g2: bool, scal, xy, inf, c: int = MSM_WINDOW_C):

@@ -73,7 +73,10 @@ def launch_fast(name: str, sym: str, key: tuple, out, *args) -> None:
     if fn is None:
         raise ValueError(f"{name}: no {key[0]} variant with {key[1]} threads "
                          "per point is built")
-    rc = fn(*args, torch.cuda.current_stream(out.device).cuda_stream)
+    # the launcher launches on the current device: make it the tensors'
+    # (a mesh puts shards on several cards of one process)
+    with torch.cuda.device(out.device):
+        rc = fn(*args, torch.cuda.current_stream(out.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
@@ -231,6 +234,15 @@ class ProjCurve:
         one = self.F.consts(xy.device)["one"].expand(*lead, 1, *self.F.shape)
         pt = torch.cat([xy, one], dim=-1 - self._cdims)
         return self.mask(pt, ~inf)
+
+    def to_jacobian(self, pt):
+        """(X:Y:Z) -> Jacobian (X Z, Y Z^2, Z) (``ProjCurve.to_jacobian``,
+        ``curve_jax.py:93``): the identity (0:1:0) gets Z = 0, Jacobian
+        infinity."""
+        x, y, z = pt.unbind(-1 - self._cdims)
+        return torch.stack([self.F.mul(x, z),
+                            self.F.mul(y, self.F.sqr(z)), z],
+                           dim=-1 - self._cdims)
 
     def to_affine_host(self, pts) -> list:
         flat = pts.reshape(-1, 3, *self.F.shape)

@@ -22,6 +22,8 @@ which ``snark/pghr13_torch.py`` shares).
     chosen as ``groth16_tpu.py:510-513`` chooses: ``ZECALE_USE_MSM8`` set
     selects msm8, else msm4.  The coordinates of BW6-761 G1 and G2 lie in
     Fq; BLS12-377 G2 lies in Fq2 (``ff/fp2_torch.py``);
+  * with a mesh (``prove(mesh=...)``, the reference's mesh route), the
+    QAP division and the H MSM run sharded over ``parallel/``;
   * assembly: on the host exactly as ``groth16_tpu.py:566-580``, drawing
     rr then ss from ``rng``, so one ``random.Random`` state gives the same
     proof as the reference's provers.
@@ -49,6 +51,7 @@ from ..ec import msm, msm8, msm_jac
 from ..ff import params as P
 from ..ff.fp_torch import field
 from ..native.witness import NativeR1CS
+from ..parallel import fft_dist, sharded
 from ..poly import fft_torch
 from ..utils.device import resolve
 from . import setup_native
@@ -79,6 +82,10 @@ class DevicePk:
     b_g2_query: dict
     l_query: dict
     h_query: dict
+    #: (qap_degree, the H query's first qap_degree rows permuted by
+    #: ``fft_dist.bitrev_permutation``): the mesh route's cache
+    #: (``_h_query_rev``, ``groth16_tpu.py:402-406``)
+    h_query_rev: Optional[tuple] = None
 
 
 def _next_pow2(n: int) -> int:
@@ -183,6 +190,15 @@ def msm8_chunks(curve_name: str, n: int) -> int:
     unit = 1 << 16 if -(-P.CURVES[curve_name].q.bit_length() // 8) >= 96 \
         else 1 << 18
     return max(1, n // unit)
+
+
+def mesh_route(engine: str, qap_degree: int, mesh) -> bool:
+    """Whether ``prove`` takes the mesh route (``groth16_tpu.py:465-469``):
+    a mesh of more than one shard that the QAP degree divides into, and an
+    engine with a sharded H MSM (msm4 or msm8; the reference's jac branch
+    ignores the mesh)."""
+    return (mesh is not None and mesh.size > 1
+            and qap_degree % mesh.size == 0 and engine != "jac")
 
 
 def default_engine() -> str:
@@ -311,14 +327,29 @@ class Groth16Torch(TorchSnarkBase):
         rng: Optional[random.Random] = None,
         device_pk: Optional[DevicePk] = None,
         timings: Optional[dict] = None,
+        mesh=None,
     ) -> Groth16Proof:
+        """``mesh``: a ``parallel.mesh.Mesh``.  With more than one shard
+        and a QAP degree that divides into them, the QAP division and the
+        H MSM run sharded (``groth16_tpu.py:465-469``): the distributed
+        FFT leaves H in bit-reversed order, taken against the H query
+        permuted to match, by ``msm4_sharded`` or ``msm8_sharded`` as the
+        engine is.  The jac engine takes the single-device path with the
+        mesh unused, as the reference's jac branch (602-647) ignores it;
+        so does any other mesh.  The "fft" phase holds the sharded
+        division, the "msm" phase the sharded H MSM."""
         rng = rng or random.Random()
         r, Fr, dev = self.r, self.Fr, self.device
         num_pub = r1cs.num_primary + 1
+        deg = r1cs.qap_degree
+        use_mesh = mesh_route(self.engine, deg, mesh)
         t0 = time.time()
 
         def mark(name):
             self._sync()
+            if use_mesh:  # the shards may lie on other cards
+                for d in {d for d in mesh.devices if d.type == "cuda"}:
+                    torch.cuda.synchronize(d)
             now = time.time()
             if timings is not None:
                 timings[name] = timings.get(name, 0.0) + now - t0
@@ -329,12 +360,18 @@ class Groth16Torch(TorchSnarkBase):
         t0 = mark("witness")
 
         evals = [Fr.to_mont(Fr.pack(v, dev)) for v in (az, bz, cz)]
-        h = fft_torch.h_pipeline(*evals, r)
+        if use_mesh:
+            h_rev = fft_dist.h_pipeline_sharded(mesh, r, *evals)
+        else:
+            h = fft_torch.h_pipeline(*evals, r)
         t0 = mark("fft")
 
-        deg = r1cs.qap_degree
-        h_std = Fr.from_mont(h[: deg - 1])
-        h_scal = torch.nn.functional.pad(h_std, (0, 0, 0, dpk.n_g1 - deg + 1))
+        if use_mesh:
+            h_rev = [Fr.from_mont(x) for x in h_rev]
+        else:
+            h_std = Fr.from_mont(h[: deg - 1])
+            h_scal = torch.nn.functional.pad(h_std,
+                                             (0, 0, 0, dpk.n_g1 - deg + 1))
         asg = [a % r for a in assignment]
         asg_g1 = self._scalars(asg, dpk.n_g1)
         asg_g2 = self._scalars(asg, dpk.n_g2)
@@ -354,7 +391,10 @@ class Groth16Torch(TorchSnarkBase):
         ev_b1_h = run(False, asg_g1, dpk.b_g1_query)
         ev_b2_h = run(True, asg_g2, dpk.b_g2_query)
         ev_l_h = run(False, l_scal, dpk.l_query)
-        ev_h_h = run(False, h_scal, dpk.h_query)
+        if use_mesh:
+            ev_h_h = self._sharded_h_msm(deg, dpk, h_rev, mesh)
+        else:
+            ev_h_h = run(False, h_scal, dpk.h_query)
         t0 = mark("msm")
 
         rr = rng.randrange(r)
@@ -372,3 +412,25 @@ class Groth16Torch(TorchSnarkBase):
         )
         mark("assembly")
         return Groth16Proof(a=A, b=B, c=C)
+
+    def _sharded_h_msm(self, deg: int, dpk: DevicePk, h_rev: list, mesh):
+        """The H MSM over the mesh (``_sharded_h_msm``,
+        ``groth16_tpu.py:365-424``): H's coefficients in bit-reversed
+        order (standard form, this process's shards) against the H query
+        permuted to match -- position i holds coefficient rev[i], and the
+        one with rev[i] = deg - 1 meets the query's padding at infinity --
+        by ``msm4_sharded``, or ``msm8_sharded`` at
+        ``msm8.default_window(deg)`` (557).  -> host affine point."""
+        if dpk.h_query_rev is None or dpk.h_query_rev[0] != deg:
+            rev = torch.from_numpy(fft_dist.bitrev_permutation(deg).astype(
+                np.int64)).to(dpk.h_query["xy"].device)
+            dpk.h_query_rev = (deg, {k: v[:deg][rev].contiguous()
+                                     for k, v in dpk.h_query.items()})
+        q = dpk.h_query_rev[1]
+        if self.engine == "msm8":
+            pt = sharded.msm8_sharded(self.curve_name, mesh, h_rev, q["xy"],
+                                      q["inf"], msm8.default_window(deg))
+        else:
+            pt = sharded.msm4_sharded(self.curve_name, mesh, h_rev, q["xy"],
+                                      q["inf"])
+        return sharded.point_to_host(self.curve_name, False, pt)
