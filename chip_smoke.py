@@ -94,6 +94,21 @@ Phases, each printing one flushed line with its seconds:
      batch 2 (wrapper domain 2^17): its device setup, then the msm4 and
      msm8 proves from one rng state, equal and valid for [vk_hash, 3, 100,
      101], msm8 in the 2 window chunks of groth16_torch.msm8_chunks;
+     [3o] the user's side served from the card: [3n]'s cached keypair
+     loaded by server_main.build_service (batch 2, prover torch), served
+     over a gRPC socket on a free local port to test_client.round_trip
+     with the port's AggregatorClient: the registration (a duplicate
+     refused, INVALID_ARGUMENT with the service's reason), four
+     nested proofs, two aggregations proved on the card, each settled by
+     the dispatcher engine's real verifier under the vk the server
+     answers, the scalars 7, 8, 9, 10 in fee order, the third pull
+     refused; then, in a temporary directory, the CLI's get-verification-
+     key and deploy, the dummy application's deploy, both batches settled
+     as EVM bytecode by submit-batch --wait (gas), the state read back,
+     and a tampered batch and the replay of batch 0 reverting; each
+     request's and settlement's seconds, the key repacks and K1's
+     launches; [3p] Groth16Native's proof of the nested dummy app equal to
+     Groth16Torch's on the card from one rng state, both valid;
   4. bench.py's MSM shape on the three engines: BLS12-377 G1 at n = 2^18
      with uniform scalars from random.Random(42) and 64 cycled bases,
      checked against the folded host MSM, Mpoints/s after one warm-up run;
@@ -127,7 +142,8 @@ Phases, each printing one flushed line with its seconds:
 
 Each path of phase 3 ([3k]: its two aggregations; [3l]: its setup, its
 first prove and its served aggregation; [3m]: its setup, its three
-engines' proves and its wrap; [3n]: the whole batch32_e2e run) and of
+engines' proves and its wrap; [3n]: the whole batch32_e2e run; [3o]: the
+round trip; [3p]: the device prove) and of
 phase 5 (each sharded MSM, each prove with the mesh, dryrun_multichip)
 runs with the launch counts set to 0 just before it and read just after.
 Tolerance: exact.
@@ -1414,6 +1430,33 @@ def wire_call(codecs: dict, method: str, handler, request) -> tuple:
     return out, time.time() - t
 
 
+def time_service_prover(prover) -> tuple:
+    """(repack, phases), filled as the service proves: each aggregation's
+    split, the prover's phases, whose "witness" holds the per-request
+    repack of the proving key (api/service.py proves with no device key),
+    timed here on its own."""
+    import torch
+
+    repack, phases = [], []
+    pack_pk, prove = prover.pack_pk, prover.prove
+
+    def timed_pack(*args):
+        t = time.time()
+        out = pack_pk(*args)
+        torch.cuda.synchronize()
+        repack.append(round(time.time() - t, 3))
+        return out
+
+    def timed_prove(*args, **kw):
+        t = {}
+        out = prove(*args, timings=t, **kw)
+        phases.append({k: round(v, 3) for k, v in t.items()})
+        return out
+
+    prover.pack_pk, prover.prove = timed_pack, timed_prove
+    return repack, phases
+
+
 def served_phase(pp: dict) -> dict:
     """[3k] The aggregator service built by server_main.build_service
     (batch 1, prover torch, the [3d] keypair loaded from a file), driven
@@ -1438,26 +1481,7 @@ def served_phase(pp: dict) -> dict:
             ["--batch-size", "1", "--prover", "torch", "--keypair", path])
     log(f"[3k] service built by server_main (batch 1, prover torch, "
         f"keypair loaded) ({time.time() - t0:.1f}s)")
-    # each aggregation's split: the prover's phases, whose "witness" holds
-    # the per-request repack of the proving key, timed here on its own
-    repack, phases = [], []
-    prover = svc.prover
-    pack_pk, prove = prover.pack_pk, prover.prove
-
-    def timed_pack(*args):
-        t = time.time()
-        out = pack_pk(*args)
-        torch.cuda.synchronize()
-        repack.append(round(time.time() - t, 3))
-        return out
-
-    def timed_prove(*args, **kw):
-        t = {}
-        out = prove(*args, timings=t, **kw)
-        phases.append({k: round(v, 3) for k, v in t.items()})
-        return out
-
-    prover.pack_pk, prover.prove = timed_pack, timed_prove
+    repack, phases = time_service_prover(svc.prover)
 
     def call(method, handler, request):
         return wire_call(codecs, method, handler, request)
@@ -2058,10 +2082,197 @@ def batch_phase() -> dict:
                  "aff_add"):
         check(counts[name]["launches"] > 0,
               f"{name} never launched by batch32_e2e --batch 2")
+    # the file batch32_e2e kept its keypair in (rollup_e2e.cached_setup: a
+    # pickle of (keypair, rng state)), which [3o] serves
+    check(os.path.exists(summary["keypair_file"]),
+          f"batch32_e2e --batch 2 left no keypair at {summary['keypair_file']}")
     log(f"[3n] batch32_e2e --batch 2 --engine msm4,msm8: equal proofs, "
         f"valid; launches {json.dumps(counts)}; summary "
         f"{json.dumps(summary)} ({time.time() - t0:.1f}s)")
-    return {"counts": counts, "summary": summary}
+    return {"counts": counts, "summary": summary,
+            "keypair": summary["keypair_file"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 3o: the user's side of the protocol, served from the card
+# ---------------------------------------------------------------------------
+
+
+def onchain_leg(batches: list, vk_json: dict, vk_hash: str, endpoint,
+                seconds: dict) -> dict:
+    """The on-chain commands of tests/test_client_onchain.py in the current
+    directory, on the answered batches: the aggregator vk fetched by `cli
+    get-verification-key` from the server at endpoint (equal to vk_json),
+    `cli deploy --batch-size 2`, the dummy application deployed for the
+    registered vk hash, each batch settled by `cli submit-batch --wait` as
+    EVM bytecode, the application state read back, then a batch with a
+    tampered input and the replay of batch 0, which must revert.  ->
+    {batch: gas}."""
+    import contextlib
+    import io
+
+    from zecale_tpu_torch.client import cli
+    from zecale_tpu_torch.client import dummy_app_cli as app_cli
+    from zecale_tpu_torch.serialization import json_codec as jc
+    from zecale_tpu_torch.test_client import app_parameters
+
+    def run(main, *argv):
+        """(exit code, standard output) of a CLI command, its errors (a
+        revert's message) kept out of the smoke's output."""
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(io.StringIO()):
+            rc = main(list(argv))
+        return rc, out.getvalue()
+
+    def submit(path, wait=False):
+        """(rc, gas or None) of `cli submit-batch`."""
+        rc, out = run(cli.main, "submit-batch", path, "--app-address",
+                      "app-instance", *(["--wait"] if wait else []))
+        gas = (int(out.split("gasUsed = ")[1].split()[0])
+               if rc == 0 and wait else None)
+        return rc, gas
+
+    check(run(cli.main, "--endpoint", endpoint, "get-verification-key")
+          [0] == 0, "cli get-verification-key failed")
+    with open("aggregator-vk.json") as f:
+        check(json.load(f) == json.loads(json.dumps(vk_json)),
+              "cli get-verification-key gave another vk")
+    check(run(cli.main, "--endpoint", endpoint, "deploy",
+              "--batch-size", "2")[0] == 0, "cli deploy failed")
+    check(run(app_cli.main, "--eth-network", "eth-chain.json", "deploy",
+              vk_hash, "--instance", "app-instance")[0] == 0,
+          "dummy_app_cli deploy failed")
+    gas = {}
+    for b, agg in enumerate(batches):
+        with open(f"batch-{b}.json", "w") as f:
+            json.dump(agg, f)
+        t = time.time()
+        rc, gas[b] = submit(f"batch-{b}.json", wait=True)
+        seconds[f"evm settle {b}"] = round(time.time() - t, 3)
+        check(rc == 0 and gas[b] > 0, f"batch {b} did not settle on chain")
+    ep0 = jc.extended_proof_from_json("bw6-761", batches[0]["ext_proof"])
+    for i, agg in enumerate(batches):
+        for j, s in enumerate(jc.extended_proof_from_json(
+                "bw6-761", agg["ext_proof"]).inputs[2:]):
+            v = int.from_bytes(app_parameters(2 * i + j)[64:], "big")
+            check(run(app_cli.main, "--eth-network", "eth-chain.json", "get",
+                      hex(s), "--instance", "app-instance", "--check",
+                      hex(v))[0] == 0,
+                  f"scalar {s} not recorded on chain")
+    tampered = json.loads(json.dumps(batches[0]))
+    tampered["ext_proof"]["inputs"][2] = jc.fr_to_json(
+        "bw6-761", ep0.inputs[2] + 100)
+    tampered["ext_proof"]["inputs"][3] = jc.fr_to_json(
+        "bw6-761", ep0.inputs[3] + 100)
+    with open("tampered.json", "w") as f:
+        json.dump(tampered, f)
+    check(submit("tampered.json")[0] == 1, "tampered batch settled")
+    check(submit("batch-0.json")[0] == 1, "replayed batch settled")
+    return gas
+
+
+def client_phase(keypair: str) -> dict:
+    """[3o] The test-client protocol (test_client.round_trip) served from
+    the card: the service built by server_main.build_service at batch 2
+    with --prover torch on [3n]'s cached wrapper keypair, served over a
+    gRPC socket on a free local port and driven by the port's
+    AggregatorClient; both
+    aggregations proved by Groth16Torch, each settled by the dispatcher
+    engine's real verifier, the scalars 7, 8, 9, 10 in fee order, the
+    third pull refused; then the on-chain leg on the two answered batches
+    in a temporary directory."""
+    import torch
+
+    from zecale_tpu_torch import test_client
+    from zecale_tpu_torch.api import grpc_server, server_main
+    from zecale_tpu_torch.client.aggregator_client import AggregatorClient
+
+    with open(keypair, "rb") as f:
+        wkp, _ = pickle.load(f)
+    seconds = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "keypair.bin")
+        with open(path, "wb") as f:
+            pickle.dump(wkp, f)
+        t0 = time.time()
+        svc, _ = server_main.build_service(
+            ["--batch-size", "2", "--prover", "torch", "--keypair", path])
+        seconds["build_service"] = round(time.time() - t0, 3)
+        repack, phases = time_service_prover(svc.prover)
+        endpoint = f"127.0.0.1:{test_client.free_port()}"
+        server = grpc_server.serve(svc, bind=endpoint, block=False)
+        log(f"[3o] transport: grpc socket {endpoint}")
+        client = AggregatorClient(endpoint)
+        cwd = os.getcwd()
+        try:
+            reset_counts()
+            out = test_client.round_trip(client, 2,
+                                         log=lambda m: log(f"[3o] {m}"))
+            torch.cuda.synchronize()
+            counts = read_counts()
+            check(counts["bucket_reduce"]["launches"] > 0,
+                  "bucket_reduce never launched by the served round trip")
+            check(len(repack) == len(phases) == 2,
+                  "the service did not repack and prove once a batch")
+            os.chdir(tmp)
+            gas = onchain_leg(out["batches"], svc.get_verification_key(),
+                              out["vk_hash"], endpoint, seconds)
+        finally:
+            os.chdir(cwd)
+            server.stop(None)
+    seconds.update(out["seconds"])
+    log(f"[3o] two batch-2 aggregations proved on the card over the "
+        f"grpc socket, settled by the dispatcher's real "
+        f"verifier (scalars 7, 8, 9, 10 in fee order), the third pull "
+        f"refused; on chain through the CLI: both batches settled, the "
+        f"state read back, the tampered batch and the replay reverted; gas "
+        f"{json.dumps(gas)}; seconds {json.dumps(seconds)}; key repack s "
+        f"{repack}; prover phases {json.dumps(phases)}; launches "
+        f"{json.dumps(counts)}")
+    return {"counts": counts, "seconds": seconds, "gas": gas}
+
+
+def native_phase(pp: dict) -> dict:
+    """[3p] The host prover against the card: Groth16Native("bls12-377")
+    and Groth16Torch("bls12-377") on the nested dummy-app circuit with the
+    [3b] keypair, from one rng state: equal proofs, both valid, and the
+    same rng draws after them."""
+    import torch
+
+    from zecale_tpu_torch.aggregator import dummy_app as da
+    from zecale_tpu_torch.snark.groth16 import Groth16
+    from zecale_tpu_torch.snark.groth16_native import Groth16Native
+    from zecale_tpu_torch.snark.groth16_torch import Groth16Torch
+
+    nkp = pp["nested_kp"]
+    r1cs = da.dummy_app_r1cs("bls12-377")
+    asg = da.dummy_app_assignment("bls12-377", 12)
+    state = random.Random(29).getstate()
+    out = {}
+    for name, prover in (("native", Groth16Native("bls12-377")),
+                         ("torch", Groth16Torch("bls12-377"))):
+        rng = random.Random()
+        rng.setstate(state)
+        reset_counts()
+        t = time.time()
+        proof = prover.prove(r1cs, nkp.pk, asg, rng)
+        torch.cuda.synchronize()
+        out[name] = (proof, round(time.time() - t, 3), read_counts(),
+                     rng.random())
+    host = Groth16("bls12-377")
+    (p_n, s_n, _, after_n), (p_t, s_t, counts, after_t) = (out["native"],
+                                                           out["torch"])
+    check(p_n == p_t, "Groth16Native's proof != Groth16Torch's")
+    check(after_n == after_t, "the two provers drew the rng differently")
+    check(host.verify([12], p_n, nkp.vk) and host.verify([12], p_t, nkp.vk),
+          "the native or the device proof does not verify")
+    check(counts["bucket_reduce"]["launches"] > 0,
+          "bucket_reduce never launched by the device prove of [3p]")
+    log(f"[3p] Groth16Native proof equals Groth16Torch's on the nested "
+        f"dummy app from one rng state, both valid; native {s_n}s, card "
+        f"{s_t}s; launches {json.dumps(counts)}")
+    return {"counts": counts}
 
 
 # ---------------------------------------------------------------------------
@@ -2518,7 +2729,15 @@ def main(argv=None) -> int:
     t0 = time.time()
     main_path["counts"].update(joinsplit_phase(main_path)["counts"])
     log(f"[3m] joinsplit phase done ({time.time() - t0:.1f}s)")
-    main_path["counts"]["batch32_e2e batch 2"] = batch_phase()["counts"]
+    batch = batch_phase()
+    main_path["counts"]["batch32_e2e batch 2"] = batch["counts"]
+    t0 = time.time()
+    main_path["counts"]["client round trip"] = client_phase(
+        batch["keypair"])["counts"]
+    log(f"[3o] client phase done ({time.time() - t0:.1f}s)")
+    t0 = time.time()
+    main_path["counts"]["host prover"] = native_phase(main_path)["counts"]
+    log(f"[3p] host prover phase done ({time.time() - t0:.1f}s)")
     t0 = time.time()
     bench_phase()
     log(f"[4] bench shapes done ({time.time() - t0:.1f}s)")

@@ -337,3 +337,17 @@ def test_rollup_keypair_cache_is_keyed_by_rng_and_r1cs(tmp_path):
     r1cs.add_constraint([(0, 1)], [(0, 1)], [(0, 1)])
     assert run(r1cs)[1] is False
     assert made == [1, 1, 2]
+
+
+def test_setup_cache_path_names_the_file_cached_setup_writes(tmp_path):
+    from zecale_tpu_torch.aggregator import dummy_app as da
+
+    r1cs, _ = da.dummy_app_setup("bls12-377", random.Random(1))
+    rng = random.Random(5)
+    path = rollup_e2e.setup_cache_path(str(tmp_path), "kp", r1cs, rng)
+    assert not os.path.exists(path)
+    rollup_e2e.cached_setup(str(tmp_path), "kp", r1cs, rng,
+                            lambda cs, r: ("keypair", r.random()))
+    assert os.listdir(tmp_path) == [os.path.basename(path)]
+    with open(path, "rb") as f:
+        assert pickle.load(f)[0][0] == "keypair"

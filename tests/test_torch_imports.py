@@ -1,6 +1,8 @@
 """The port must load where JAX does not exist: no module of
 zecale_tpu_torch, and not chip_smoke.py, imports jax, jaxlib or the JAX
-package zecale_tpu (it keeps its own copies of the JAX-free layers)."""
+package zecale_tpu (it keeps its own copies of the JAX-free layers).  Only
+the gRPC client, the CLI that drives it and the gRPC server import grpc
+where they are loaded: the rest runs on a machine without it."""
 
 import ast
 import os
@@ -23,6 +25,21 @@ def _port_files():
     return sorted(out)
 
 
+def _imports(path):
+    """(line, module name) of every absolute import in the file."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for n in names:
+            yield node.lineno, n
+
+
 def test_no_module_of_the_port_imports_jax_or_the_jax_package():
     bad = []
     files = _port_files()
@@ -33,21 +50,29 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
                  "zeth/dev_vectors.py", "rollup_e2e.py", "batch32_e2e.py",
                  "parallel/__init__.py", "parallel/mesh.py",
                  "parallel/fft_dist.py", "parallel/sharded.py",
-                 "multihost_dryrun.py"):
+                 "multihost_dryrun.py", "client/__init__.py",
+                 "client/aggregator_client.py", "client/cli.py",
+                 "client/dispatcher_contract.py", "client/dummy_app_cli.py",
+                 "client/zeth_bridge.py", "evm/__init__.py", "evm/keccak.py",
+                 "evm/asm.py", "evm/contracts_asm.py", "evm/vm.py",
+                 "snark/groth16_native.py", "test_client.py"):
         assert os.path.join("zecale_tpu_torch", name) in rel, name
     for path in files:
-        with open(path) as f:
-            tree = ast.parse(f.read(), path)
-        for node in ast.walk(tree):
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom) and node.level == 0:
-                names = [node.module or ""]
-            else:
-                continue
-            bad += [f"{os.path.relpath(path, REPO)}:{node.lineno} {n}"
-                    for n in names if _forbidden(n)]
+        bad += [f"{os.path.relpath(path, REPO)}:{line} {n}"
+                for line, n in _imports(path) if _forbidden(n)]
     assert bad == []
+
+
+#: the modules that may import grpc (anywhere in the file)
+GRPC_MODULES = {"zecale_tpu_torch/api/grpc_server.py",
+                "zecale_tpu_torch/client/aggregator_client.py",
+                "zecale_tpu_torch/client/cli.py"}
+
+
+def test_only_the_grpc_transport_and_its_client_import_grpc():
+    users = {os.path.relpath(p, REPO) for p in _port_files()
+             if any(n.split(".")[0] == "grpc" for _, n in _imports(p))}
+    assert users == GRPC_MODULES
 
 
 def test_main_path_imports_with_jax_unimportable():
@@ -87,6 +112,16 @@ def test_main_path_imports_with_jax_unimportable():
         "import zecale_tpu_torch.parallel.fft_dist\n"
         "import zecale_tpu_torch.parallel.sharded\n"
         "import zecale_tpu_torch.multihost_dryrun\n"
+        "import zecale_tpu_torch.snark.groth16_native\n"
+        "import zecale_tpu_torch.test_client\n"
+        "import zecale_tpu_torch.client\n"
+        "import zecale_tpu_torch.client.dispatcher_contract\n"
+        "import zecale_tpu_torch.client.dummy_app_cli\n"
+        "import zecale_tpu_torch.client.zeth_bridge\n"
+        "import zecale_tpu_torch.evm.keccak\n"
+        "import zecale_tpu_torch.evm.asm\n"
+        "import zecale_tpu_torch.evm.contracts_asm\n"
+        "import zecale_tpu_torch.evm.vm\n"
         "loaded = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'zecale_tpu') and sys.modules[m] is not None]\n"
         "assert not loaded, loaded\n"

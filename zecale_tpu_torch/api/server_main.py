@@ -1,4 +1,4 @@
-# Ported from zecale_tpu/api/server_main.py: the same flags and keypair cache, with Groth16Torch and Pghr13Torch as the device provers.
+# Ported from zecale_tpu/api/server_main.py: the same flags and keypair cache, with Groth16Torch and Pghr13Torch as the device provers and Groth16Native as the native one.
 """aggregator-server entry point.
 
 Reference analog: aggregator_server/aggregator_server.cpp main (:418-521):
@@ -11,21 +11,22 @@ input count and proving backend are runtime flags here.
 and ``serve`` serves it; only ``serve`` imports grpc, so the service object
 runs where grpc is not installed.
 
-``--device`` is ``cuda`` unless the CPU is asked for; without a GPU the
-entry point raises.  ``--prover torch`` (the default) proves and runs the
-trusted setup on that device through ``Groth16Torch``, or ``Pghr13Torch``
-with ``--snark PGHR13``; ``--prover host`` is the pure-Python oracle.  The
-JAX package's ``native`` prover is not offered: its ``Groth16Native``
-computes the QAP evaluations through the JAX prover
-(``snark/groth16_native.py:211``).  ``--curve mnt6-298`` is refused with
-``--prover torch`` (a != 0, which the device group law does not serve).
+``--device``, the torch prover's, is ``cuda`` unless the CPU is asked
+for; without a GPU the entry point raises.  ``--prover torch`` (the
+default) proves and runs the trusted setup on that device through
+``Groth16Torch``, or ``Pghr13Torch`` with ``--snark PGHR13``; ``--prover
+native`` proves and runs the setup on the host's native C engine through
+``Groth16Native`` (GROTH16 only, on any ``--curve``, ``mnt6-298``
+included); ``--prover host`` is the pure-Python oracle.  ``--curve
+mnt6-298`` is refused with ``--prover torch`` (a != 0, which the device
+group law does not serve).
 The witness is computed in the serving process: ``ZECALE_PARALLEL_WITNESS``
 forks, and is left off here as in the reference.
 
 Usage:
     python -m zecale_tpu_torch.api.server_main [--keypair PATH]
         [--batch-size N] [--inputs-per-proof N] [--bind HOST:PORT]
-        [--r1cs PATH] [--prover torch|host] [--device cuda|cpu]
+        [--r1cs PATH] [--prover torch|native|host] [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -84,8 +85,9 @@ def parser() -> argparse.ArgumentParser:
         "--r1cs", default=None, help="dump the wrapper R1CS to this JSON path"
     )
     ap.add_argument(
-        "--prover", choices=["host", "torch"], default="torch",
-        help="torch = PyTorch/CUDA prover on --device; "
+        "--prover", choices=["host", "native", "torch"], default="torch",
+        help="torch = PyTorch/CUDA prover on --device; native = the "
+             "host's native C engine (GROTH16 only); "
              "host = pure-Python oracle",
     )
     ap.add_argument(
@@ -120,10 +122,9 @@ def build_service(argv=None):
     written), everything of ``main`` but serving."""
     ap = parser()
     args = ap.parse_args(argv)
-    device = resolve(args.device)  # raises where there is no GPU
-
     prover = None
     if args.prover == "torch":
+        device = resolve(args.device)  # raises where there is no GPU
         if args.snark == "GROTH16":
             from ..snark.groth16_torch import Groth16Torch as Prover
         else:
@@ -134,6 +135,12 @@ def build_service(argv=None):
         except ValueError as e:  # the a = 0 law refuses the curve
             ap.error(f"--prover torch cannot serve --curve {args.curve}: "
                      f"{e}")
+    elif args.prover == "native":
+        if args.snark != "GROTH16":
+            ap.error("--prover native serves GROTH16 only")
+        from ..snark.groth16_native import Groth16Native
+
+        prover = Groth16Native(args.curve)
 
     from ..aggregator.circuit import AggregatorCircuit
     from .service import AggregatorService

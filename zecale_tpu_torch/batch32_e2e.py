@@ -1,4 +1,4 @@
-# Ported from scripts/batch32_e2e.py (its --tpu path): the same steps [1]-[6], rng seed and checks, with Groth16Torch as the prover.
+# Ported from scripts/batch32_e2e.py: the same steps [1]-[6], rng seed and checks, with Groth16Torch as the prover of its --tpu path and Groth16Native (--engine native) of its other.
 """Batch-32 settlement configuration on the card (SURVEY section 7 step
 10): 32 dummy-app BLS12-377 proofs aggregated into ONE BW6-761 wrapper
 proof (958,190 constraints, QAP domain 2^20).
@@ -12,25 +12,30 @@ Steps, as the reference numbers them:
   3. its witness through the native hook replay, with the vk-hash and
      all-result-bits checks;
   4. the wrapper's trusted setup on the card (``Groth16Torch.
-     generate_setup``), pickled in ``--cache`` under the batch, the rng
-     state it starts from and a digest of the R1CS; a hit restores the rng
-     state the setup left, so a cached run proves what an uncached one does;
+     generate_setup``), or on the host's native C engine when the first
+     engine is ``native``, pickled in ``--cache`` under the batch, the rng
+     state it starts from and a digest of the R1CS (both setups give one
+     keypair from one rng state, so they share the file); a hit restores
+     the rng state the setup left, so a cached run proves what an uncached
+     one does;
   5. the proving key packed to the card once, then the prove with each
      engine of ``--engine`` from one rng state (msm8 in the window chunks
-     of ``groth16_torch.msm8_chunks``: 16 at n = 2^20), with its phases
-     and its peak device memory;
+     of ``groth16_torch.msm8_chunks``: 16 at n = 2^20; ``native`` is
+     ``Groth16Native``, the reference's path without ``--tpu``), with its
+     phases and its peak device memory;
   6. host verification, the layout ``[vk_hash, 2^batch - 1, 100, ...]``,
      and every engine's proof equal to the first one's.
 
 An out-of-memory error ends the run with exit code 1 after its
 ``E2E_JSON`` line, which names the engine and the failed allocation;
 nothing is retried.  There is no CPU fallback: without a GPU the default
-``--device cuda`` raises.  The first run of batch 32 on an H100 takes about
+``--device cuda`` raises, unless every engine is ``native``, which needs
+no device.  The first run of batch 32 on an H100 takes about
 15 minutes (circuit and witness on the host, the setup on the card); a
 cached keypair saves the setup.
 
 Usage: python -m zecale_tpu_torch.batch32_e2e [--batch 32] [--cache DIR]
-    [--engine msm4|msm8|jac[,...]] [--json PATH] [--device cuda|cpu]
+    [--engine msm4|msm8|jac|native[,...]] [--json PATH] [--device cuda|cpu]
 Prints one ``E2E_JSON: {...}`` line and ends with ``BATCH-<batch> OK``.
 """
 
@@ -49,7 +54,8 @@ def main(argv=None) -> int:
     ap.add_argument("--cache", default=os.path.join(
         tempfile.gettempdir(), "zecale_tpu_torch_cache"))
     ap.add_argument("--engine", default="",
-                    help="msm4, msm8 or jac, or several joined by commas "
+                    help="msm4, msm8, jac or native, or several joined "
+                    "by commas "
                     "(default: msm8 if ZECALE_USE_MSM8 is set, else msm4)")
     ap.add_argument("--json", default="", help="write summary JSON here")
     ap.add_argument("--device", default="cuda")
@@ -60,16 +66,18 @@ def main(argv=None) -> int:
     from .aggregate_e2e import _check
     from .aggregator import dummy_app as da
     from .aggregator.circuit import AggregatorCircuit
-    from .rollup_e2e import cached_setup
+    from .rollup_e2e import cached_setup, setup_cache_path
     from .snark import groth16_torch as gt
     from .snark.groth16 import Groth16
+    from .snark.groth16_native import Groth16Native
     from .utils.device import resolve
 
     engines = (args.engine or gt.default_engine()).split(",")
     for eng in engines:
-        if eng not in gt.ENGINES:
-            ap.error(f"engine {eng!r} not in {gt.ENGINES}")
-    dev = resolve(args.device)
+        if eng not in gt.ENGINES + ("native",):
+            ap.error(f"engine {eng!r} not in {gt.ENGINES + ('native',)}")
+    on_device = [eng for eng in engines if eng != "native"]
+    dev = resolve(args.device) if on_device else torch.device("cpu")
     cuda = dev.type == "cuda"
     os.makedirs(args.cache, exist_ok=True)
     print("device:", torch.cuda.get_device_name(dev) if cuda else dev,
@@ -117,28 +125,37 @@ def main(argv=None) -> int:
     _check(w[1] == vk_hash, "input 0 is not the nested vk hash")
     _check(w[2] == (1 << B) - 1, "all result bits must be set")
 
-    provers = {eng: gt.Groth16Torch("bw6-761", device=dev, engine=eng)
+    provers = {eng: Groth16Native("bw6-761") if eng == "native" else
+               gt.Groth16Torch("bw6-761", device=dev, engine=eng)
                for eng in engines}
     prover = provers[engines[0]]
     setup_t = {}
+    timed = {} if engines[0] == "native" else {"timings": setup_t}
     t0 = time.time()
+    # the file that holds (keypair, rng state), for a caller that serves
+    # this keypair
+    summary["keypair_file"] = setup_cache_path(
+        args.cache, f"batch{B}_keypair", r1cs, rng)
     wkp, hit = cached_setup(
         args.cache, f"batch{B}_keypair", r1cs, rng,
-        lambda cs, r: prover.generate_setup(cs, r, timings=setup_t))
+        lambda cs, r: prover.generate_setup(cs, r, **timed))
     summary.update(setup_s=round(time.time() - t0, 2), setup_loaded=hit,
                    setup_phases={k: round(v, 2) for k, v in setup_t.items()})
+    where = "on the host" if engines[0] == "native" else "on the card"
     print(f"[4] wrapper trusted setup "
-          f"({'cached' if hit else 'on the card'}): {summary['setup_s']}s "
+          f"({'cached' if hit else where}): {summary['setup_s']}s "
           f"{summary['setup_phases']}", flush=True)
 
-    t0 = time.time()
-    dpk = prover.pack_pk(wkp.pk, r1cs.num_primary + 1)
-    if cuda:
-        torch.cuda.synchronize(dev)
-    summary.update(pack_pk_s=round(time.time() - t0, 2), n_g1=dpk.n_g1,
-                   n_g2=dpk.n_g2)
-    print(f"    pk packed to device: {summary['pack_pk_s']}s (G1 queries "
-          f"{dpk.n_g1}, G2 query {dpk.n_g2})", flush=True)
+    dpk = None
+    if on_device:
+        t0 = time.time()
+        dpk = provers[on_device[0]].pack_pk(wkp.pk, r1cs.num_primary + 1)
+        if cuda:
+            torch.cuda.synchronize(dev)
+        summary.update(pack_pk_s=round(time.time() - t0, 2), n_g1=dpk.n_g1,
+                       n_g2=dpk.n_g2)
+        print(f"    pk packed to device: {summary['pack_pk_s']}s (G1 "
+              f"queries {dpk.n_g1}, G2 query {dpk.n_g2})", flush=True)
 
     inputs = w[1: 1 + circ.num_primary_inputs]
     host_w = Groth16("bw6-761")

@@ -58,12 +58,19 @@ def r1cs_digest(r1cs) -> str:
     return h.hexdigest()[:16]
 
 
+def setup_cache_path(cache: str, name: str, r1cs, rng: random.Random) -> str:
+    """The file cached_setup keeps ``name``'s keypair in, for ``r1cs`` and
+    the rng state ``rng`` holds now."""
+    key = hashlib.sha256(repr(rng.getstate()).encode()).hexdigest()[:16]
+    return os.path.join(cache, f"{name}_{r1cs_digest(r1cs)}_{key}.pkl")
+
+
 def cached_setup(cache: str, name: str, r1cs, rng: random.Random, setup):
     """``setup(r1cs, rng)`` -> keypair, pickled in ``cache`` under the rng
-    state it starts from and the R1CS digest, with the rng state it
-    leaves; a hit restores that state.  -> (keypair, loaded?)."""
-    key = hashlib.sha256(repr(rng.getstate()).encode()).hexdigest()[:16]
-    path = os.path.join(cache, f"{name}_{r1cs_digest(r1cs)}_{key}.pkl")
+    state it starts from and the R1CS digest (setup_cache_path), with the
+    rng state it leaves; a hit restores that state.  -> (keypair,
+    loaded?)."""
+    path = setup_cache_path(cache, name, r1cs, rng)
     if os.path.exists(path):
         with open(path, "rb") as f:
             kp, state = pickle.load(f)
