@@ -208,9 +208,9 @@ def _shape(records):
 
 def test_phase_profiler_records_match_reference(tmp_path, monkeypatch):
     monkeypatch.delenv("ZECALE_JAX_TRACE", raising=False)
-    monkeypatch.delenv("ZECALE_TORCH_TRACE", raising=False)
     want = _nested_run(profiling_ref.PhaseProfiler())
-    got = _nested_run(profiling.PhaseProfiler())
+    tracer = profiling.Tracer()
+    got = _nested_run(profiling.PhaseProfiler(tracer))
     assert _shape(got.records) == _shape(want.records)
     assert [k for r in got.records for k in r] == [
         k for r in want.records for k in r]
@@ -227,20 +227,29 @@ def test_phase_profiler_records_match_reference(tmp_path, monkeypatch):
     want.report(out_want)
     names = lambda s: [ln.split()[0] for ln in s.getvalue().splitlines()]  # noqa: E731
     assert names(out_got) == names(out_want)
-    assert got.device == {}
+    # each phase is a span of the tracer, nested by its parent's id
+    spans = tracer.snapshot().spans
+    name_of = {s.id: s.name for s in spans}
+    assert sorted((s.name, name_of.get(s.parent)) for s in spans) == [
+        ("fft", "prove"), ("msm", "prove"), ("prove", None),
+        ("prove", None), ("reduce", "msm"), ("setup", None)]
 
 
-def test_phase_profiler_writes_a_trace_per_top_level_phase(
-        tmp_path, monkeypatch):
-    monkeypatch.setenv("ZECALE_TORCH_TRACE", str(tmp_path / "trace"))
-    prof = _nested_run(profiling.PhaseProfiler())
-    assert sorted(os.listdir(tmp_path / "trace")) == ["prove.json",
-                                                      "setup.json"]
-    with open(tmp_path / "trace" / "prove.json") as f:
-        events = json.load(f)["traceEvents"]
-    assert any("aten::" in e.get("name", "") for e in events)
-    assert set(prof.device) == {"setup", "prove"}
-    assert prof.device["prove"]["device_ms"] == 0  # the CPU has no kernels
+def test_phase_profiler_writes_a_trace_per_top_level_phase(tmp_path):
+    """The trace a torch.profiler writes holds a ``record_function`` event
+    for each run of a top-level phase (``setup`` once, ``prove`` twice)
+    and for each phase nested in one: the phases need no capture of their
+    own."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _nested_run(profiling.PhaseProfiler(profiling.Tracer()))
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    with open(tmp_path / "trace.json") as f:
+        names = [e.get("name", "") for e in json.load(f)["traceEvents"]]
+    assert names.count("setup") == 1 and names.count("prove") == 2
+    assert {"fft", "msm", "reduce"} <= set(names)
+    assert any("aten::" in n for n in names)
 
 
 # ---------------------------------------------------------------------------

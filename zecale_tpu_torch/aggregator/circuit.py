@@ -1,4 +1,4 @@
-# Copied from zecale_tpu/aggregator/circuit.py (JAX-free); only imports and build paths changed.
+# Copied from zecale_tpu/aggregator/circuit.py (JAX-free); imports, build paths and the tracer's spans changed.
 """The aggregator (wrapper) circuit: one BW6-761 Groth16 proof attesting to
 the verification of N nested BLS12-377 Groth16 proofs.
 
@@ -33,6 +33,7 @@ from ..snark.groth16 import (
     Groth16Proof,
     Groth16VerificationKey,
 )
+from ..utils import profiling
 
 
 class AggregatorCircuit:
@@ -205,13 +206,14 @@ class AggregatorCircuit:
             import os
 
             parallel = os.environ.get("ZECALE_PARALLEL_WITNESS") == "1"
-        return self.pb.generate_witness(
-            [0] * self.pb.num_primary,
-            extra_setter=extra,
-            parallel_ranges=(
-                self._proof_hook_ranges if parallel else None
-            ),
-        )
+        with profiling.span("circuit.witness"):
+            return self.pb.generate_witness(
+                [0] * self.pb.num_primary,
+                extra_setter=extra,
+                parallel_ranges=(
+                    self._proof_hook_ranges if parallel else None
+                ),
+            )
 
     def prove(
         self,
@@ -223,17 +225,19 @@ class AggregatorCircuit:
         check: bool = False,
     ) -> ExtendedProof:
         """Witness the batch and produce the wrapping proof
-        (reference: aggregator_circuit.tcc:119-170)."""
-        w = self.generate_witness(nested_vk, nested_proofs)
-        if check:
-            bad = self.r1cs.first_failing_constraint(w)
-            assert bad is None, f"wrapper witness fails constraint {bad}"
-        primary = w[1 : 1 + self.pb.num_primary]
-        if prover is not None:
-            proof = prover.prove(self.r1cs, wpk, w, rng)
-        else:
-            proof = self.wsnark.prove(self.r1cs, wpk, w, rng)
-        return ExtendedProof(proof=proof, inputs=primary)
+        (reference: aggregator_circuit.tcc:119-170), as the span
+        ``circuit.prove``."""
+        with profiling.span("circuit.prove"):
+            w = self.generate_witness(nested_vk, nested_proofs)
+            if check:
+                bad = self.r1cs.first_failing_constraint(w)
+                assert bad is None, f"wrapper witness fails constraint {bad}"
+            primary = w[1 : 1 + self.pb.num_primary]
+            if prover is not None:
+                proof = prover.prove(self.r1cs, wpk, w, rng)
+            else:
+                proof = self.wsnark.prove(self.r1cs, wpk, w, rng)
+            return ExtendedProof(proof=proof, inputs=primary)
 
     # ------------------------------------------------------------------
     def compute_nested_vk_hash(self, nested_vk: Groth16VerificationKey) -> int:

@@ -40,6 +40,7 @@ import sys
 import time
 
 from ..snark.pghr13 import Pghr13VerificationKey
+from ..utils import profiling
 from ..utils.device import resolve
 
 
@@ -150,17 +151,17 @@ def build_service(argv=None):
         args.batch_size,
         args.inputs_per_proof,
     )
-    t0 = time.time()
-    circuit = AggregatorCircuit(
-        args.inputs_per_proof,
-        args.batch_size,
-        wrapper_curve=args.curve,
-        nested_snark=args.nested_snark,
-        wrapper_snark=args.snark,
-    )
+    with profiling.span("setup.circuit") as sp:
+        circuit = AggregatorCircuit(
+            args.inputs_per_proof,
+            args.batch_size,
+            wrapper_curve=args.curve,
+            nested_snark=args.nested_snark,
+            wrapper_snark=args.snark,
+        )
     logging.info(
         "circuit ready in %.1fs: %d constraints",
-        time.time() - t0,
+        (sp.t1 - sp.t0) / 1e9,
         circuit.r1cs.num_constraints,
     )
 

@@ -1,4 +1,4 @@
-# Copied from zecale_tpu/api/service.py (JAX-free); only docstrings changed.
+# Copied from zecale_tpu/api/service.py (JAX-free); docstrings and the tracer's spans changed.
 """Aggregator service core — the transport-independent implementation of the
 six RPCs of the reference's Aggregator service (proto/zecale/api/
 aggregator.proto:9-41; server behavior aggregator_server.cpp:106-349).
@@ -21,6 +21,7 @@ from ..aggregator.pool import (
 from ..ff import params as P
 from ..serialization import json_codec as jc
 from ..snark.groth16 import ExtendedProof, Groth16VerificationKey
+from ..utils import profiling
 
 log = logging.getLogger("zecale.aggregator")
 
@@ -116,33 +117,41 @@ class AggregatorService:
     def _check_vk_points(self, vk) -> None:
         from ..ec import host_curve as hc
 
-        g1 = hc.g1_curve(self.nested_curve)
-        g2 = hc.g2_curve(self.nested_curve)
-        if self.nested_snark == "GROTH16":
-            ok = (
-                g1.is_on_curve(vk.alpha)
-                and g2.is_on_curve(vk.beta)
-                and g2.is_on_curve(vk.delta)
-                and all(g1.is_on_curve(p) for p in vk.abc)
-            )
-        else:  # PGHR13: a,c,g,gb2,z in G2; b,gb1,IC in G1
-            ok = (
-                all(g2.is_on_curve(p) for p in (vk.a, vk.c, vk.g, vk.gb2, vk.z))
-                and g1.is_on_curve(vk.b)
-                and g1.is_on_curve(vk.gb1)
-                and all(g1.is_on_curve(p) for p in vk.ic)
-            )
+        with profiling.span("service.check_points"):
+            g1 = hc.g1_curve(self.nested_curve)
+            g2 = hc.g2_curve(self.nested_curve)
+            if self.nested_snark == "GROTH16":
+                ok = (
+                    g1.is_on_curve(vk.alpha)
+                    and g2.is_on_curve(vk.beta)
+                    and g2.is_on_curve(vk.delta)
+                    and all(g1.is_on_curve(p) for p in vk.abc)
+                )
+            else:  # PGHR13: a,c,g,gb2,z in G2; b,gb1,IC in G1
+                ok = (
+                    all(g2.is_on_curve(p)
+                        for p in (vk.a, vk.c, vk.g, vk.gb2, vk.z))
+                    and g1.is_on_curve(vk.b)
+                    and g1.is_on_curve(vk.gb1)
+                    and all(g1.is_on_curve(p) for p in vk.ic)
+                )
         if not ok:
             raise ServiceError("vk contains points not on the curve")
 
     # -- SubmitNestedTransaction --------------------------------------------
     def submit_nested_transaction(self, tx_json: dict) -> None:
+        with profiling.request("service.submit"):
+            self._submit(tx_json)
+
+    def _submit(self, tx_json: dict) -> None:
         name = tx_json["app_name"]
         if name not in self.pools:
             raise ServiceError(f"application '{name}' not registered")
-        ep = jc.extended_proof_from_json(
-            self.nested_curve, tx_json["extended_proof"], self.nested_snark
-        )
+        with profiling.span("codec.decode"):
+            ep = jc.extended_proof_from_json(
+                self.nested_curve, tx_json["extended_proof"],
+                self.nested_snark
+            )
         if len(ep.inputs) != self.circuit.num_inputs:
             raise ServiceError("wrong number of nested primary inputs")
         self._check_proof_points(ep)
@@ -163,25 +172,30 @@ class AggregatorService:
     def _check_proof_points(self, ep: ExtendedProof) -> None:
         from ..ec import host_curve as hc
 
-        g1 = hc.g1_curve(self.nested_curve)
-        g2 = hc.g2_curve(self.nested_curve)
-        p = ep.proof
-        if self.nested_snark == "GROTH16":
-            ok = (
-                g1.is_on_curve(p.a)
-                and g2.is_on_curve(p.b)
-                and g1.is_on_curve(p.c)
-            )
-        else:  # PGHR13: b in G2, everything else in G1
-            ok = g2.is_on_curve(p.b) and all(
-                g1.is_on_curve(q)
-                for q in (p.a, p.a_p, p.b_p, p.c, p.c_p, p.h, p.k)
-            )
+        with profiling.span("service.check_points"):
+            g1 = hc.g1_curve(self.nested_curve)
+            g2 = hc.g2_curve(self.nested_curve)
+            p = ep.proof
+            if self.nested_snark == "GROTH16":
+                ok = (
+                    g1.is_on_curve(p.a)
+                    and g2.is_on_curve(p.b)
+                    and g1.is_on_curve(p.c)
+                )
+            else:  # PGHR13: b in G2, everything else in G1
+                ok = g2.is_on_curve(p.b) and all(
+                    g1.is_on_curve(q)
+                    for q in (p.a, p.a_p, p.b_p, p.c, p.c_p, p.h, p.k)
+                )
         if not ok:
             raise ServiceError("proof contains points not on the curve")
 
     # -- GenerateAggregatedTransaction --------------------------------------
     def generate_aggregated_transaction(self, name: str) -> dict:
+        with profiling.request("service.aggregate"):
+            return self._aggregate(name)
+
+    def _aggregate(self, name: str) -> dict:
         if name not in self.pools:
             raise ServiceError(f"application '{name}' not registered")
         pool = self.pools[name]
@@ -200,11 +214,13 @@ class AggregatorService:
             extended_proof=wrapped,
             nested_parameters=[tx.parameters for tx in batch],
         )
+        with profiling.span("codec.encode"):
+            ext_proof = jc.extended_proof_to_json(
+                self.wrapper_curve, agg.extended_proof, self.wrapper_snark
+            )
         return {
             "app_name": agg.application_name,
-            "ext_proof": jc.extended_proof_to_json(
-                self.wrapper_curve, agg.extended_proof, self.wrapper_snark
-            ),
+            "ext_proof": ext_proof,
             "nested_parameters": [
                 p.hex() for p in agg.nested_parameters
             ],

@@ -40,6 +40,7 @@ import torch
 
 from ..ec import host_curve as hc
 from ..ff import params as P
+from ..utils import profiling
 from . import curve_torch as ct
 from . import proj_curve as pc
 
@@ -319,11 +320,14 @@ def msm(curve_name: str, g2: bool, scal, xy, inf, c: int = 0):
     F = ct.coord_field(curve_name, g2)
     subs = subset_sums(curve_name, g2, scal, xy, inf,
                        c or default_window(xy.shape[0]))
+    if subs.is_cuda:  # the span below holds host work only
+        torch.cuda.synchronize(subs.device)
 
     # Horner over bit positions j = c*w + k on the host, in Jacobian
     # coordinates: one field inversion in all instead of one per step
-    g = host_curve(curve_name, g2)
-    acc = None
-    for pt in reversed(ct.to_affine_host(F, subs)):
-        acc = g.jac_add_mixed(g.jac_dbl(acc), pt)
-    return g.from_jacobian(acc)
+    with profiling.span("msm.fold", n=subs.shape[0]):
+        g = host_curve(curve_name, g2)
+        acc = None
+        for pt in reversed(ct.to_affine_host(F, subs)):
+            acc = g.jac_add_mixed(g.jac_dbl(acc), pt)
+        return g.from_jacobian(acc)

@@ -1,4 +1,4 @@
-# Copied from zecale_tpu/gadgets/protoboard.py (JAX-free); only imports and build paths changed.
+# Copied from zecale_tpu/gadgets/protoboard.py (JAX-free); imports, build paths and the span of the hook program's build changed.
 """Constraint-system builder ("protoboard") and linear-combination algebra.
 
 Equivalent role to libsnark's ``protoboard``/``pb_variable``/``gadget``
@@ -25,6 +25,7 @@ import os
 from typing import Callable, Dict, Iterable, List, Sequence, Tuple
 
 from ..snark.r1cs import R1CS
+from ..utils import profiling
 
 
 class LC:
@@ -268,7 +269,8 @@ class Protoboard:
                 try:
                     from ..native.witness import HookProgram
 
-                    prog = HookProgram(self)
+                    with profiling.span("setup.hook_program"):
+                        prog = HookProgram(self)
                 except Exception:
                     prog = False
                 self._hook_prog = prog

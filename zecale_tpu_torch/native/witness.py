@@ -1,4 +1,4 @@
-# Copied from zecale_tpu/native/witness.py (JAX-free); only imports and build paths changed.
+# Copied from zecale_tpu/native/witness.py (JAX-free); imports, build paths, the grouping of Python hooks and the replay's span changed.
 """ctypes bindings for the native witness/constraint engine
 (csrc/witness_engine.c).  Compiled on demand with gcc; every entry point has
 a pure-Python fallback, so the package works without a toolchain.
@@ -11,9 +11,12 @@ import functools
 import os
 import subprocess
 import tempfile
+import time
 from typing import List, Optional, Sequence
 
 import numpy as np
+
+from ..utils import profiling
 
 _SRC = os.path.join(
     os.path.dirname(os.path.abspath(__file__)), "csrc", "witness_engine.c"
@@ -260,7 +263,8 @@ class HookProgram:
     def __init__(self, pb):
         self.pb = pb
         self.F = native_field(pb.r)
-        self.segments = []  # ("c", ops_arr) | ("py", hook_index)
+        #: ("c", ops array) | ("py", indices of consecutive Python hooks)
+        self.segments = []
         if not self.F.available:
             return
         F = self.F
@@ -284,7 +288,10 @@ class HookProgram:
                 if cur:
                     self.segments.append(("c", cur))
                     cur = []
-                self.segments.append(("py", hi))
+                if self.segments and self.segments[-1][0] == "py":
+                    self.segments[-1][1].append(hi)
+                else:
+                    self.segments.append(("py", [hi]))
                 continue
             kind = self.KINDS[op[0]]
             if op[0] in ("mul", "div", "xor"):
@@ -321,25 +328,41 @@ class HookProgram:
 
     def run(self, w: List[int]) -> List[int]:
         """Replay over a plain-int assignment list (primary + seeded
-        free inputs filled, the rest 0); returns the completed list."""
+        free inputs filled, the rest 0); returns the completed list.
+
+        The replay is the span ``witness.replay``; its attributes
+        ``c_segments``, ``py_hooks`` and ``py_ns`` count the C segments
+        run, the Python hooks run and the nanoseconds of the runs of
+        consecutive Python hooks."""
         F = self.F
-        arr = _pack_fast([v % F.p for v in w], F.nl)
-        arr_m = F.to_mont(arr)
-        view = None
-        for kind, payload in self.segments:
-            if kind == "c":
-                F.lib.hook_replay(
-                    F.ctx,
-                    arr_m.ctypes.data_as(ctypes.c_void_p),
-                    payload.ctypes.data_as(ctypes.c_void_p),
-                    ctypes.c_long(payload.shape[0]),
-                    self.tvar.ctypes.data_as(ctypes.c_void_p),
-                    self.tcoef.ctypes.data_as(ctypes.c_void_p),
-                    self.pm2.ctypes.data_as(ctypes.c_void_p),
-                    self.one_m.ctypes.data_as(ctypes.c_void_p),
-                )
-            else:
-                if view is None:
-                    view = _MontView(F, arr_m)
-                self.pb.witness_hooks[payload](view)
-        return _unpack_fast(F.from_mont(arr_m))
+        hooks = self.pb.witness_hooks
+        c_segments = py_hooks = py_ns = 0
+        with profiling.span("witness.replay") as sp:
+            arr = _pack_fast([v % F.p for v in w], F.nl)
+            arr_m = F.to_mont(arr)
+            view = None
+            for kind, payload in self.segments:
+                if kind == "c":
+                    F.lib.hook_replay(
+                        F.ctx,
+                        arr_m.ctypes.data_as(ctypes.c_void_p),
+                        payload.ctypes.data_as(ctypes.c_void_p),
+                        ctypes.c_long(payload.shape[0]),
+                        self.tvar.ctypes.data_as(ctypes.c_void_p),
+                        self.tcoef.ctypes.data_as(ctypes.c_void_p),
+                        self.pm2.ctypes.data_as(ctypes.c_void_p),
+                        self.one_m.ctypes.data_as(ctypes.c_void_p),
+                    )
+                    c_segments += 1
+                else:
+                    if view is None:
+                        view = _MontView(F, arr_m)
+                    t0 = time.perf_counter_ns()
+                    for hi in payload:
+                        hooks[hi](view)
+                    py_ns += time.perf_counter_ns() - t0
+                    py_hooks += len(payload)
+            out = _unpack_fast(F.from_mont(arr_m))
+            sp.attrs.update(c_segments=c_segments, py_hooks=py_hooks,
+                            py_ns=py_ns)
+        return out

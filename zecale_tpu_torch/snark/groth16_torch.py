@@ -36,6 +36,7 @@ gives the native engine's keypair.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import random
@@ -53,6 +54,7 @@ from ..ff.fp_torch import field
 from ..native.witness import NativeR1CS
 from ..parallel import fft_dist, sharded
 from ..poly import fft_torch
+from ..utils import profiling
 from ..utils.device import resolve
 from . import setup_native
 from .groth16 import Groth16KeyPair, Groth16Proof, Groth16ProvingKey
@@ -168,7 +170,8 @@ def abc_evaluations(r1cs: R1CS, assignment: Sequence[int]) -> tuple:
     raises."""
     nat = getattr(r1cs, "_native", None)
     if nat is None:
-        nat = NativeR1CS(r1cs)
+        with profiling.span("setup.native_r1cs"):
+            nat = NativeR1CS(r1cs)
         r1cs._native = nat
     if not nat.available:
         raise RuntimeError(
@@ -343,74 +346,93 @@ class Groth16Torch(TorchSnarkBase):
         num_pub = r1cs.num_primary + 1
         deg = r1cs.qap_degree
         use_mesh = mesh_route(self.engine, deg, mesh)
-        t0 = time.time()
 
-        def mark(name):
-            self._sync()
-            if use_mesh:  # the shards may lie on other cards
-                for d in {d for d in mesh.devices if d.type == "cuda"}:
-                    torch.cuda.synchronize(d)
-            now = time.time()
+        @contextlib.contextmanager
+        def phase(name):
+            """The phase ``name`` of ``timings``, ending in a device
+            synchronize, as the span ``prove.<name>``: both read the same
+            two clock readings."""
+            with profiling.span("prove." + name) as sp:
+                yield
+                self._sync()
+                if use_mesh:  # the shards may lie on other cards
+                    for d in {d for d in mesh.devices if d.type == "cuda"}:
+                        torch.cuda.synchronize(d)
             if timings is not None:
-                timings[name] = timings.get(name, 0.0) + now - t0
-            return now
+                timings[name] = (timings.get(name, 0.0)
+                                 + (sp.t1 - sp.t0) / 1e9)
 
-        dpk = device_pk or self.pack_pk(pk, num_pub)
-        az, bz, cz = abc_evaluations(r1cs, assignment)
-        t0 = mark("witness")
+        with phase("witness"):
+            dpk = device_pk
+            if dpk is None:
+                with profiling.span("prove.pack_pk"):
+                    dpk = self.pack_pk(pk, num_pub)
+            with profiling.span("prove.abc"):
+                az, bz, cz = abc_evaluations(r1cs, assignment)
 
-        evals = [Fr.to_mont(Fr.pack(v, dev)) for v in (az, bz, cz)]
-        if use_mesh:
-            h_rev = fft_dist.h_pipeline_sharded(mesh, r, *evals)
-        else:
-            h = fft_torch.h_pipeline(*evals, r)
-        t0 = mark("fft")
+        with phase("fft"):
+            evals = [Fr.to_mont(Fr.pack(v, dev)) for v in (az, bz, cz)]
+            if use_mesh:
+                h_rev = fft_dist.h_pipeline_sharded(mesh, r, *evals)
+            else:
+                h = fft_torch.h_pipeline(*evals, r)
 
-        if use_mesh:
-            h_rev = [Fr.from_mont(x) for x in h_rev]
-        else:
-            h_std = Fr.from_mont(h[: deg - 1])
-            h_scal = torch.nn.functional.pad(h_std,
-                                             (0, 0, 0, dpk.n_g1 - deg + 1))
-        asg = [a % r for a in assignment]
-        asg_g1 = self._scalars(asg, dpk.n_g1)
-        asg_g2 = self._scalars(asg, dpk.n_g2)
-        l_scal = self._scalars(asg[num_pub:], dpk.n_g1)
-        t0 = mark("digitize")
+        with phase("digitize"):
+            if use_mesh:
+                h_rev = [Fr.from_mont(x) for x in h_rev]
+            else:
+                h_std = Fr.from_mont(h[: deg - 1])
+                h_scal = torch.nn.functional.pad(
+                    h_std, (0, 0, 0, dpk.n_g1 - deg + 1))
+            asg = [a % r for a in assignment]
+            asg_g1 = self._scalars(asg, dpk.n_g1)
+            asg_g2 = self._scalars(asg, dpk.n_g2)
+            l_scal = self._scalars(asg[num_pub:], dpk.n_g1)
 
-        def run(g2, scal, query):
+        def msm_span(name, n):
+            """One MSM against ``<name>_query`` as the span ``msm.<name>``,
+            with its points and engine."""
+            return profiling.span("msm." + name, n=n, engine=self.engine)
+
+        def run(name, g2, scal):
+            query = getattr(dpk, name + "_query")
             xy, inf = query["xy"], query["inf"]
-            if self.engine == "msm8":
-                return msm8.msm8(
-                    self.curve_name, g2, scal, xy, inf,
-                    chunks=msm8_chunks(self.curve_name, xy.shape[0]))
-            engine = msm.msm if self.engine == "msm4" else msm_jac.msm
-            return engine(self.curve_name, g2, scal, xy, inf)
+            with msm_span(name, xy.shape[0]):
+                if self.engine == "msm8":
+                    return msm8.msm8(
+                        self.curve_name, g2, scal, xy, inf,
+                        chunks=msm8_chunks(self.curve_name, xy.shape[0]))
+                engine = msm.msm if self.engine == "msm4" else msm_jac.msm
+                return engine(self.curve_name, g2, scal, xy, inf)
 
-        ev_a_h = run(False, asg_g1, dpk.a_query)
-        ev_b1_h = run(False, asg_g1, dpk.b_g1_query)
-        ev_b2_h = run(True, asg_g2, dpk.b_g2_query)
-        ev_l_h = run(False, l_scal, dpk.l_query)
-        if use_mesh:
-            ev_h_h = self._sharded_h_msm(deg, dpk, h_rev, mesh)
-        else:
-            ev_h_h = run(False, h_scal, dpk.h_query)
-        t0 = mark("msm")
+        with phase("msm"):
+            ev_a_h = run("a", False, asg_g1)
+            ev_b1_h = run("b_g1", False, asg_g1)
+            ev_b2_h = run("b_g2", True, asg_g2)
+            ev_l_h = run("l", False, l_scal)
+            if use_mesh:
+                with msm_span("h", deg):
+                    ev_h_h = self._sharded_h_msm(deg, dpk, h_rev, mesh)
+            else:
+                ev_h_h = run("h", False, h_scal)
 
-        rr = rng.randrange(r)
-        ss = rng.randrange(r)
-        g1, g2 = self.g1_host, self.g2_host
-        A = g1.add(g1.add(dpk.alpha_g1, ev_a_h), g1.mul(rr, dpk.delta_g1))
-        B = g2.add(g2.add(dpk.beta_g2, ev_b2_h), g2.mul(ss, dpk.delta_g2))
-        B1 = g1.add(g1.add(dpk.beta_g1, ev_b1_h), g1.mul(ss, dpk.delta_g1))
-        C = g1.add(
-            g1.add(ev_l_h, ev_h_h),
-            g1.add(
-                g1.add(g1.mul(ss, A), g1.mul(rr, B1)),
-                g1.neg(g1.mul(rr * ss % r, dpk.delta_g1)),
-            ),
-        )
-        mark("assembly")
+        with phase("assembly"):
+            rr = rng.randrange(r)
+            ss = rng.randrange(r)
+            g1, g2 = self.g1_host, self.g2_host
+            A = g1.add(g1.add(dpk.alpha_g1, ev_a_h),
+                       g1.mul(rr, dpk.delta_g1))
+            B = g2.add(g2.add(dpk.beta_g2, ev_b2_h),
+                       g2.mul(ss, dpk.delta_g2))
+            B1 = g1.add(g1.add(dpk.beta_g1, ev_b1_h),
+                        g1.mul(ss, dpk.delta_g1))
+            C = g1.add(
+                g1.add(ev_l_h, ev_h_h),
+                g1.add(
+                    g1.add(g1.mul(ss, A), g1.mul(rr, B1)),
+                    g1.neg(g1.mul(rr * ss % r, dpk.delta_g1)),
+                ),
+            )
         return Groth16Proof(a=A, b=B, c=C)
 
     def _sharded_h_msm(self, deg: int, dpk: DevicePk, h_rev: list, mesh):
