@@ -1,8 +1,9 @@
 """The port's tracer (zecale_tpu_torch/utils/profiling.py) on the CPU: the
 span tree of a Groth16Torch prove and its agreement with ``timings``, the
-ring's bound, the parent stacks of threads, the hook replay's counts, the
-service's request spans over the FakeCircuit flow, and the shared clock
-with a ``torch.profiler`` trace as the benchmark aligns it.  The
+resident key's attribute on ``prove.pack_pk``, the ring's bound, the
+parent stacks of threads, the hook replay's counts, the service's request
+spans over the FakeCircuit flow, and the shared clock with a
+``torch.profiler`` trace as the benchmark aligns it.  The
 cost of a span and a counter with no profiler is printed, not asserted.
 Tolerance: exact, but for clock comparisons (1 us between a span and its
 ``timings`` entry, 1 ms between a span and its profiler event)."""
@@ -102,6 +103,21 @@ def test_device_pk_leaves_out_pack_pk(proves):
     assert [s.name for s in spans].count("prove.pack_pk") == 1
     assert (proof_dpk.a, proof_dpk.b, proof_dpk.c) == (proof.a, proof.b,
                                                         proof.c)
+
+
+def test_pack_pk_span_says_whether_the_key_was_resident():
+    """A fresh prover's first prove packs the key (``resident`` 0); its
+    second, with the same key object, finds it resident (1)."""
+    r1cs, kp = da.dummy_app_setup(CURVE, random.Random(5))
+    asg = da.dummy_app_assignment(CURVE, 9)
+    prover = Groth16Torch(CURVE, device="cpu")
+    got = []
+    for _ in range(2):
+        with profiling.request("service.aggregate") as req:
+            prover.prove(r1cs, kp.pk, asg, random.Random(77))
+        (s,) = [s for s in _spans_of(req) if s.name == "prove.pack_pk"]
+        got.append(s.attrs["resident"])
+    assert got == [0, 1]
 
 
 def test_ring_is_bounded():

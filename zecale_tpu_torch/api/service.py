@@ -44,8 +44,9 @@ class AggregatorService:
         compute_nested_vk_hash(); ``wrapper_keypair`` its Groth16 keypair.
         ``prover`` optionally overrides the proving backend (e.g. the
         device prover ``Groth16Torch``); None uses the circuit's default.
-        The prover is given no packed device key, so it packs the proving
-        key again on every aggregation request, as the reference does."""
+        The prover is given no packed device key: a device prover packs
+        the proving key on the first aggregation request and keeps it
+        resident for every later one (``TorchSnarkBase.resident_pk``)."""
         self.circuit = circuit
         self.keypair = wrapper_keypair
         self.nested_curve = nested_curve or getattr(

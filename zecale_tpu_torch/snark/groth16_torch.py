@@ -7,8 +7,12 @@ which ``snark/pghr13_torch.py`` shares).
 ``Groth16Torch.prove`` has the reference's signature, so
 ``AggregatorCircuit.prove(prover=...)`` calls it unchanged.  The steps:
 
-  * witness: Az, Bz, Cz from the native C engine (``native/witness.py``);
-    no Python fallback -- a missing engine raises;
+  * witness: the device key, given as ``device_pk`` or else the
+    prover's resident key (``TorchSnarkBase.resident_pk``: packed on the
+    first prove with a host key, reused while later proves give the same
+    key object); Az, Bz, Cz from the native C engine
+    (``native/witness.py``), no Python fallback -- a missing engine
+    raises;
   * fft: the QAP division ``poly/fft_torch.h_pipeline`` on the device;
   * digitize: H to standard form on the device, the assignment packed as
     32-bit scalar limbs;
@@ -40,6 +44,7 @@ import contextlib
 import dataclasses
 import os
 import random
+import threading
 import time
 from typing import Optional, Sequence
 
@@ -213,9 +218,10 @@ def default_engine() -> str:
 class TorchSnarkBase:
     """What the device provers share (``TpuSnarkBase``,
     ``groth16_tpu.py:116-197``): the device, the curve, its scalar field,
-    the host curves, and the device's fixed-base products (the trusted
-    setups) and Jacobian MSMs against a padded query.  The curve must have
-    a = 0: the device group law refuses the others."""
+    the host curves, the device's fixed-base products (the trusted
+    setups) and Jacobian MSMs against a padded query, and the resident
+    device key.  The curve must have a = 0: the device group law refuses
+    the others."""
 
     def __init__(self, curve_name: str, device=None):
         self.curve_name = curve_name
@@ -225,6 +231,28 @@ class TorchSnarkBase:
         ct.b3_of(curve_name, True)  # refuses curves the law does not serve
         self.g1_host = hc.g1_curve(curve_name)
         self.g2_host = hc.g2_curve(curve_name)
+        #: (host pk, pack_pk's other arguments, device key) of the last
+        #: key packed by ``resident_pk``; the strong reference to the host
+        #: key keeps its identity from being reused
+        self._resident = None
+        self._resident_lock = threading.Lock()
+
+    def resident_pk(self, pk, *args) -> tuple:
+        """The device key of the host key ``pk`` -> (device key, whether
+        it was resident).  The key stays on the device between calls: a
+        call with the same ``pk`` object and the same ``args`` reuses it,
+        any other packs ``self.pack_pk(pk, *args)`` and takes its place,
+        the old key freed first.  A proving key is never changed in
+        place, so the object names its points.  The lock makes threads
+        that start with one key pack it once."""
+        with self._resident_lock:
+            slot = self._resident
+            if slot is not None and slot[0] is pk and slot[1] == args:
+                return slot[2], True
+            self._resident = None
+            dpk = self.pack_pk(pk, *args)
+            self._resident = (pk, args, dpk)
+            return dpk, False
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -365,8 +393,9 @@ class Groth16Torch(TorchSnarkBase):
         with phase("witness"):
             dpk = device_pk
             if dpk is None:
-                with profiling.span("prove.pack_pk"):
-                    dpk = self.pack_pk(pk, num_pub)
+                with profiling.span("prove.pack_pk") as sp:
+                    dpk, hit = self.resident_pk(pk, num_pub)
+                    sp.attrs["resident"] = int(hit)
             with profiling.span("prove.abc"):
                 az, bz, cz = abc_evaluations(r1cs, assignment)
 

@@ -205,7 +205,8 @@ class Pghr13Torch(TorchSnarkBase, Pghr13):
                 timings[name] = timings.get(name, 0.0) + now - t0
             return now
 
-        dpk = device_pk or self.pack_pk(pk)
+        dpk = (device_pk if device_pk is not None
+               else self.resident_pk(pk)[0])
         d1, d2, d3 = (rng.randrange(r) for _ in range(3))
         az, bz, cz = abc_evaluations(r1cs, assignment)
         t0 = mark("witness")
